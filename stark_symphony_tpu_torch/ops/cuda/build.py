@@ -1,0 +1,121 @@
+"""Build the package's CUDA kernels at first use and bind them with ctypes.
+
+``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds).  The
+library lands in ``build/stark_symphony_tpu_torch/`` at the repository
+root, named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is loaded as it is.
+
+A missing ``nvcc`` or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "stark_symphony_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes of the extern "C" launchers in csrc/sha256.cu; the last
+# two arguments of each are the device ordinal and the CUDA stream.
+_SIGNATURES = {
+    "stpu_sha256_words": (_P, _P, _I, _I, _I, _P),
+    "stpu_sha256_pair": (_P, _P, _P, _I, _I, _P),
+    "stpu_merkle_walk": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME or /usr/local/cuda; raises if none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+        "of stark_symphony_tpu_torch cannot be built"
+    )
+
+
+class Kernels:
+    """The loaded library: its launchers, where it came from, and what
+    building it cost (0 when an existing build was loaded)."""
+
+    def __init__(self, lib: ctypes.CDLL, path: pathlib.Path,
+                 build_seconds: float, log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            setattr(self, name, fn)
+
+
+def _compile(out: pathlib.Path) -> str:
+    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(dir=str(out.parent), suffix=".so")
+    os.close(fd)
+    try:
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return res.stdout + res.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> Kernels:
+    """Build (if needed) and load the kernel library, once per process."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libstpu_kernels_{source_hash()}.so"
+    log_path = out.with_suffix(".log")
+    t0 = time.perf_counter()
+    if out.exists():
+        seconds = 0.0
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
+        log = _compile(out)
+        seconds = time.perf_counter() - t0
+        log_path.write_text(log)
+    return Kernels(ctypes.CDLL(str(out)), out, seconds, log)
