@@ -4,26 +4,41 @@
     python chip_smoke.py
 
 Drives the port's main path, the batched stwo verifier at the PRODUCTION
-config, through ``stark_symphony_tpu_torch.entry``, in phases:
+config, through both entry points of ``stark_symphony_tpu_torch.entry``:
+``entry()`` (the standard path, kernels K1-K3) and ``entry_tiled()`` (the
+tiled fast path, kernels K1, K4 and K5), in phases:
 
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
       name and power limit as nvidia-smi reports them;
-  (b) build: compiles the kernels K1-K3 from ``stark_symphony_tpu_torch/csrc``;
+  (b) build: compiles the kernels K1-K5 from ``stark_symphony_tpu_torch/csrc``
+      and prints ptxas's registers and spills for each;
   (c) kernels: each kernel against its plain PyTorch version on the card, bit
-      for bit, on seeded random words at a ragged lane count, and a few lanes
-      against hashlib;
-  (d) slice: 4,096 PRODUCTION proofs (the 256 committed fixtures, 16 times
-      each) must all be accepted; a 16-proof batch carrying the 15 tamper
-      classes in lanes 1-15 must reject exactly those lanes, with every
+      for bit, on seeded random words at a ragged lane count (words >= P and
+      >= 2^31 included; about half the K4/K5 lanes carry valid paths), and a
+      few lanes against hashlib;
+  (d) standard path: 4,096 PRODUCTION proofs (the 256 committed fixtures, 16
+      times each) must all be accepted; a 16-proof batch carrying the 15
+      tamper classes in lanes 1-15 must reject exactly those lanes, with every
       mask equal to the port's own CPU run;
-  (e) every kernel's launch count in the main-path run is above zero;
-  (f) at the shapes the slice gives each kernel: kernel and plain version
-      compared bit for bit again, then timed with CUDA events, beside the
-      slice's proofs/s; torch.profiler over one slice run gives the
-      device's busy share and each kernel's own device time.
+  (d') tiled path: the same 4,096 proofs through ``entry_tiled()`` must all be
+      accepted, and the tamper batch, tiled on the card, must give every mask
+      of the CPU run; the time of ``tile_batch`` (H2D and the on-device
+      relayout) is printed;
+  (e) launch counts, per path, each counted from 0 over one run: standard K1,
+      K2, K3 > 0 and no K4/K5; tiled K1 > 0, K4 = 2, K5 = 1 and no K2/K3;
+  (f) at the shapes each path gives each kernel: kernel and plain version
+      compared bit for bit again (K4/K5 on inputs where both ok values
+      occur, as in (c)), then timed with CUDA events, beside each
+      path's proofs/s (median of 5 batches, each timed alone);
+      torch.profiler over one batch of each path gives the device's busy
+      share and each kernel's own device time.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+``{"ok": true, "device": {...}}``; the line before it lists the kernels,
+each with its time, its plain version's time and its bound: the larger of
+the bytes its inputs and outputs move at the card's memory rate and the
+integer ALU instructions its SHA-256 compressions need at the card's
+issue rate for them (``bound()``).
 """
 
 from __future__ import annotations
@@ -76,11 +91,163 @@ def tamper_batch(proof, n_layers: int):
     return batch
 
 
-KERNELS = {  # wrapper name -> (kernel, Pallas function it replaces)
-    "sha256_words": ("K1", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:221"),
-    "sha256_pair": ("K2", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:265"),
-    "merkle_walk": ("K3", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:312"),
+KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces)
+    "sha256_words": ("K1", "csrc/sha256.cu", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:221"),
+    "sha256_pair": ("K2", "csrc/sha256.cu", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:265"),
+    "merkle_walk": ("K3", "csrc/sha256.cu", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:312"),
+    "leafwalk": ("K4", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:200"),
+    "fri_all_layers": ("K5", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:314"),
 }
+# Each path's kernels: (launch counts expected on one batch, the device
+# functions its profile must show).  A count of None means "more than 0".
+PATHS = {
+    "standard": ({"sha256_words": None, "sha256_pair": None, "merkle_walk": None,
+                  "leafwalk": 0, "fri_all_layers": 0},
+                 ("sha256_words_kernel", "sha256_pair_kernel", "merkle_walk_kernel")),
+    "tiled": ({"sha256_words": None, "sha256_pair": 0, "merkle_walk": 0,
+               "leafwalk": 2, "fri_all_layers": 1},
+              ("sha256_words_kernel", "leafwalk_kernel", "fri_kernel")),
+}
+
+# The bound of a kernel call: the larger of bytes / memory rate and integer
+# instructions / integer issue rate, on an H100 SXM.  The memory rate and
+# the clock are the published ones (3.35 TB/s; 67 TFLOP/s float32 is
+# 132 SMs x 128 lanes x 2 x 1.98 GHz).  The instructions counted are the
+# funnel shifts, shifts and three-input logic ops (LOP3) of SHA-256, which
+# issue on the integer ALU pipe alone, 64 lanes per SM: a round has 10
+# (Sigma0 and Sigma1 three shifts and a LOP3 each, ch and maj a LOP3 each),
+# a schedule word 8, so a compression over data has 1,024 and one whose
+# schedule is a constant (a block of padding alone) 640.  The additions are
+# left out, since the compiler may issue them on the FMA pipe, and so are
+# the fold's field arithmetic and the compares: the bound is a lower one.
+MEM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_DATA_COMPRESS = 1024
+OPS_CONST_COMPRESS = 640
+OPS_NODE = OPS_DATA_COMPRESS + OPS_CONST_COMPRESS
+
+
+def _ops_sha_words(n: int) -> int:
+    """Integer instructions of SHA-256 over an n-word message."""
+    blocks = (n + 3 + 15) // 16
+    const = 1 if n % 16 == 0 else 0  # a last block of padding alone
+    return (blocks - const) * OPS_DATA_COMPRESS + const * OPS_CONST_COMPRESS
+
+
+def bound(name: str, args, outs):
+    """(bound_ms, bound_by, compressions) of one call of kernel `name` on
+    these arguments: each input tensor read once and each output written
+    once, against the instructions this call's data needs."""
+    import numpy as np
+    import torch
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)] + list(outs)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    if name == "sha256_words":
+        lanes, n = args[0].numel() // args[0].shape[-1], args[0].shape[-1]
+        ops, compr = lanes * _ops_sha_words(n), lanes * ((n + 3 + 15) // 16)
+    elif name == "sha256_pair":
+        lanes = args[0].numel() // 8
+        ops, compr = lanes * OPS_NODE, lanes * 2
+    elif name == "merkle_walk":
+        leaf, _, sibs, depths = args
+        lanes = leaf.numel() // 8
+        if depths is None:
+            levels = lanes * sibs.shape[-2]
+        else:  # per-path depths broadcast over the leading batch axes
+            levels = int(np.sum(depths)) * (lanes // np.size(depths))
+        ops, compr = levels * OPS_NODE, levels * 2
+    elif name == "leafwalk":
+        evals, _, sibs, _ = args
+        lanes, n, depth = evals.shape[1], evals.shape[0], sibs.shape[0]
+        ops = lanes * (_ops_sha_words(n) + depth * OPS_NODE)
+        compr = lanes * ((n + 3 + 15) // 16 + 2 * depth)
+    else:
+        depths = args[-1]
+        lanes = args[0].shape[0]
+        per_layer = [2 * OPS_DATA_COMPRESS + OPS_NODE + d * OPS_NODE for d in depths]
+        ops = lanes * sum(per_layer)
+        compr = lanes * sum(4 + 2 * d for d in depths)
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+            compr)
+
+
+def _words(rng, *shape):
+    """Seeded random words with the edge values of M31 and of uint32 mixed
+    in: 0, 1, P - 1, P, 2^31, 2^32 - 2, 2^32 - 1."""
+    import numpy as np
+
+    x = rng.integers(0, 1 << 32, shape, dtype=np.uint32)
+    flat = x.reshape(-1)
+    k = flat.size // 16
+    edges = np.array([0, 1, 0x7FFFFFFE, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                      0xFFFFFFFF], dtype=np.uint32)
+    flat[rng.integers(0, flat.size, k)] = rng.choice(edges, k)
+    return x
+
+
+def _valid_proofs(arrays, n_proofs: int, n_queries: int):
+    """Give every even proof's lanes the words of its first lane, so that
+    one root serves them all (per-lane arrays: lanes on the last axis)."""
+    for a in arrays:
+        v = a.reshape(a.shape[:-1] + (n_proofs, n_queries))
+        v[..., ::2, :] = v[..., ::2, :1].clone()
+
+
+def leafwalk_case(rng, n_proofs: int, n_queries: int, n_words: int,
+                  depth: int, device="cpu", valid: bool = True):
+    """Seeded inputs of K4, int64 word tensors on `device`: evals
+    (n_words, lanes), index (lanes,), sibs (depth, 8, lanes), roots
+    (n_proofs, 8).  With `valid`, every even proof's root is the one its
+    lanes' path gives (plain Merkle code), except one word of proof 2's."""
+    import numpy as np
+
+    from stark_symphony_tpu_torch.ops import fri
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+
+    lanes = n_proofs * n_queries
+    evals = _words(rng, n_words, lanes)
+    index = rng.integers(0, 1 << depth, lanes, dtype=np.uint32) if depth else \
+        np.zeros(lanes, np.uint32)
+    sibs = _words(rng, depth, 8, lanes)
+    roots = _words(rng, n_proofs, 8)
+    arrays = [from_numpy(a, device) for a in (evals, index, sibs, roots)]
+    if valid:
+        _valid_proofs(arrays[:3], n_proofs, n_queries)
+        made = fri.leaf_roots_plain(*arrays[:3])[::n_queries]
+        arrays[3][::2] = made[::2]
+        if n_proofs > 2:
+            arrays[3][2, 5] ^= 1
+    return arrays
+
+
+def fri_case(rng, n_proofs: int, n_queries: int, depths, device="cpu",
+             valid: bool = True):
+    """Seeded inputs of K5, int64 word tensors on `device`: queries, evals,
+    wits, cinvs, alphas, sibs, roots (see ``ops/fri.py``).  With `valid`,
+    every even proof's layer roots are the ones its lanes give (plain FRI
+    chain), except one word of proof 2's layer-1 root."""
+    import numpy as np
+
+    from stark_symphony_tpu_torch.ops import fri
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+
+    lanes, n_layers = n_proofs * n_queries, len(depths)
+    queries = rng.integers(0, 1 << (depths[0] + 1), lanes, dtype=np.uint32)
+    queries[::97] = _words(rng, queries[::97].size)
+    arrays = [from_numpy(a, device) for a in (
+        queries, _words(rng, 4, lanes), _words(rng, n_layers, 4, lanes),
+        _words(rng, n_layers, lanes), _words(rng, n_proofs, n_layers, 4),
+        _words(rng, sum(depths), 8, lanes), _words(rng, n_proofs, n_layers, 8))]
+    if valid:
+        per_lane = [arrays[i] for i in (0, 1, 2, 3, 5)]
+        _valid_proofs(per_lane, n_proofs, n_queries)
+        made = fri.fri_roots_plain(*arrays[:6], depths)[0]  # (L, lanes, 8)
+        arrays[6][::2] = made.transpose(0, 1)[::n_queries][::2]
+        if n_proofs > 2 and n_layers > 1:
+            arrays[6][2, 1, 0] ^= 1
+    return arrays
 
 
 def check(cond, what: str) -> None:
@@ -126,6 +293,49 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def reset_counts() -> None:
+    from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
+    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+
+    ck.reset_launches()
+    fk.reset_launches()
+
+
+def launch_counts() -> dict:
+    from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
+    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+
+    return {**ck.launches, **fk.launches}
+
+
+def check_counts(path: str, counts: dict) -> None:
+    """(e): the kernels launched in one batch of `path` are its own."""
+    for name, want in PATHS[path][0].items():
+        n = counts[name]
+        if want is None:
+            check(n > 0, f"{path} path: kernel {name} was not launched")
+        else:
+            check(n == want, f"{path} path: kernel {name} launched {n} times, want {want}")
+
+
+def batch_ms(fn, batch, runs: int = 5):
+    """(median, sorted runs) of fn(batch) in ms, each run timed alone with
+    CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2], times
+
+
 def phase_device():
     import torch
 
@@ -161,9 +371,10 @@ def phase_kernels(rng):
     import numpy as np
     import torch
 
-    from stark_symphony_tpu_torch.ops import merkle, sha256
+    from stark_symphony_tpu_torch.ops import fri, merkle, sha256
+    from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
     from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
-    from stark_symphony_tpu_torch.ops.u32 import from_numpy, to_numpy
+    from stark_symphony_tpu_torch.ops.u32 import from_i32, from_numpy, to_i32, to_numpy
 
     err = {name: 0 for name in KERNELS}
 
@@ -212,13 +423,46 @@ def phase_kernels(rng):
                   f"merkle_walk depth {depth} lane {lane} != hashlib")
     log(f"K3 merkle_walk: bit-equal to plain and hashlib, depth 13 and "
         f"per-lane depths 0..12, {LANES} lanes")
+
+    # K4, K5: LANES = 241 proofs x 17 queries; even proofs carry valid paths
+    n_proofs, n_q = 241, 17
+    for n_words in (4, 16):
+        args = leafwalk_case(rng, n_proofs, n_q, n_words, 13, "cuda")
+        got = from_i32(fk.leafwalk(*[to_i32(a).contiguous() for a in args]))
+        compare("leafwalk", got, fri.leafwalk_plain(*args), f"n_words={n_words}")
+        n_ok = int(got.sum().item())
+        check(0 < n_ok < LANES, f"leafwalk n_words={n_words}: {n_ok} of {LANES} lanes ok")
+        evals, idx, sibs, roots = (to_numpy(a) for a in args)
+        host = to_numpy(got)
+        # proof 0 valid, 1 random, 2 valid with a root word flipped, 4 valid
+        for lane in (0, n_q + 1, 2 * n_q + 3, 4 * n_q + 5, LANES - 1):
+            root = _hashlib_root(_hashlib_words(evals[:, lane]), int(idx[lane]),
+                                 sibs[:, :, lane], 13)
+            want = root == list(roots[lane // n_q])
+            check(bool(host[lane]) == want, f"leafwalk lane {lane} != hashlib")
+        log(f"K4 leafwalk: bit-equal to plain and hashlib, n_words={n_words}, "
+            f"depth 13, {LANES} lanes, {n_ok} ok")
+
+    depths = tuple(range(12, 3, -1))
+    args = fri_case(rng, n_proofs, n_q, depths, "cuda")
+    got = fk.fri_all_layers(*[to_i32(a).contiguous() for a in args], depths)
+    want = fri.fri_all_layers_plain(*args, depths)
+    for g, w, what in zip(got, want, ("ok", "folded", "q_out")):
+        compare("fri_all_layers", from_i32(g), w, what)
+    ok = to_numpy(from_i32(got[0]))
+    check(ok[:, :n_q].all() and not ok[:, n_q:2 * n_q].any()
+          and not ok[1, 2 * n_q:3 * n_q].any() and ok[0, 2 * n_q:3 * n_q].all(),
+          "fri_all_layers: valid and broken proofs not told apart")
+    log(f"K5 fri_all_layers: bit-equal to plain (ok, folded, q_out), depths "
+        f"12..4, {LANES} lanes, {int(ok.sum())} of {ok.size} layer checks ok")
     return err
 
 
 def phase_slice(proofs):
-    """The main path at B = 4,096 through entry(); then the tamper matrix
-    against the port's own CPU run.  Returns (launch counts, the median
-    batch ms, the entry function and its batch)."""
+    """(d), (e): the standard path at B = 4,096 through entry(); then the
+    tamper matrix against the port's own CPU run.  Returns (launch counts,
+    the median batch ms, the entry function, its batch, the CPU run's
+    (bitmap, masks) of the tamper batch)."""
     import numpy as np
     import torch
 
@@ -226,7 +470,6 @@ def phase_slice(proofs):
     from stark_symphony_tpu_torch.models.stwo import proof as P
     from stark_symphony_tpu_torch.models.stwo import verifier
     from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
-    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
 
     t0 = time.perf_counter()
     fn, (batch,) = E.entry(N_PROOFS, "cuda", proofs)
@@ -237,34 +480,23 @@ def phase_slice(proofs):
     log(f"batch: {N_PROOFS} proofs, {nbytes / 1e6:.1f} MB as uint32; entry() "
         f"set-up (stack, H2D, widen) {setup_s:.3f} s")
 
-    ck.reset_launches()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bitmap = fn(batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = dict(ck.launches)
-    log(f"main path: verify_batch(B={N_PROOFS}) first run {first_s:.3f} s, "
+    counts = launch_counts()
+    log(f"standard path: verify_batch(B={N_PROOFS}) first run {first_s:.3f} s, "
         f"launches {counts}")
     check(tuple(bitmap.shape) == (N_PROOFS,), f"bitmap shape {tuple(bitmap.shape)}")
     n_ok = int(bitmap.sum().item())
     check(n_ok == N_PROOFS, f"{N_PROOFS - n_ok} of {N_PROOFS} valid proofs rejected")
-    log(f"main path: all {N_PROOFS} proofs accepted")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    log(f"standard path: all {N_PROOFS} proofs accepted")
+    check_counts("standard", counts)
 
-    runs = []  # the first run above was the warm-up
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(batch)
-        end.record()
-        torch.cuda.synchronize()
-        runs.append(start.elapsed_time(end))
-    runs.sort()
-    slice_ms = runs[len(runs) // 2]
-    log(f"slice: {slice_ms:.3f} ms per {N_PROOFS}-proof batch "
+    slice_ms, runs = batch_ms(fn, batch)  # the first run above was the warm-up
+    log(f"standard slice: {slice_ms:.3f} ms per {N_PROOFS}-proof batch "
         f"({N_PROOFS / (slice_ms / 1e3):.1f} proofs/s; CUDA events, median of "
         f"{len(runs)} runs: {', '.join(f'{r:.1f}' for r in runs)} ms)")
 
@@ -272,37 +504,115 @@ def phase_slice(proofs):
     tb = tamper_batch(proofs[0], 1 + PRODUCTION.n_inner_layers)
     ok_g, masks_g = verifier.verify(P.to_torch(tb, "cuda"), PRODUCTION)
     ok_c, masks_c = verifier.verify(P.to_torch(tb, "cpu"), PRODUCTION)
-    bm = ok_g.cpu().numpy()
-    check(bm[0] and not bm[1:].any(),
-          f"tamper matrix: accepted lanes {np.flatnonzero(bm).tolist()}, want [0]")
-    check(list(masks_g) == list(masks_c), "mask keys differ between GPU and CPU")
-    for k in masks_g:
-        check(torch.equal(masks_g[k].cpu(), masks_c[k]), f"mask {k}: GPU != CPU")
-    check(torch.equal(ok_g.cpu(), ok_c), "accept bitmap: GPU != CPU")
-    log(f"tamper matrix: lanes 1-15 rejected, lane 0 accepted; all {len(masks_g)} "
-        "masks equal to the CPU run")
-    return counts, slice_ms, fn, batch
+    check_tamper("standard", ok_g, masks_g, ok_c, masks_c)
+    return counts, slice_ms, fn, batch, (ok_c, masks_c)
 
 
-def phase_timings(rng, err):
-    """Each kernel (wrapper, layout included) against its plain version at
-    the shapes of the slice at B = 4,096 (Q = 16, 9 FRI layers): compared
-    bit for bit (largest difference into `err`), then timed."""
+def check_tamper(path, ok_g, masks_g, ok_c, masks_c) -> None:
+    """Lanes 1-15 rejected, lane 0 accepted, every mask of the card's run
+    equal to the CPU run's, keys in the same order."""
     import numpy as np
     import torch
 
-    from stark_symphony_tpu_torch.ops import merkle, sha256
+    bm = ok_g.cpu().numpy()
+    check(bm[0] and not bm[1:].any(),
+          f"{path} tamper matrix: accepted lanes {np.flatnonzero(bm).tolist()}, want [0]")
+    check(list(masks_g) == list(masks_c), f"{path}: mask keys differ from the CPU run's")
+    for k in masks_g:
+        check(torch.equal(masks_g[k].cpu(), masks_c[k]), f"{path} mask {k}: GPU != CPU")
+    check(torch.equal(ok_g.cpu(), ok_c), f"{path} accept bitmap: GPU != CPU")
+    log(f"{path} tamper matrix: lanes 1-15 rejected, lane 0 accepted; all "
+        f"{len(masks_g)} masks equal to the CPU run")
+
+
+def phase_tiled(proofs, tamper_cpu):
+    """(d'), (e): the tiled path at B = 4,096 through entry_tiled(); the
+    tamper batch tiled on the card against the CPU run of the standard
+    path.  Returns (launch counts, the median batch ms, fn, its batch)."""
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stwo import tiled, verifier
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+
+    t0 = time.perf_counter()
+    fn, (tb,) = E.entry_tiled(N_PROOFS, "cuda", proofs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in tb)
+    numpy_batch = E.production_batch(N_PROOFS, proofs)
+    tile_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiled.tile_batch(numpy_batch, PRODUCTION, "cuda")
+        torch.cuda.synchronize()
+        tile_s.append(time.perf_counter() - t0)
+    tile_s.sort()
+    log(f"tiled batch: {N_PROOFS} proofs, {nbytes / 1e6:.1f} MB on the card; "
+        f"entry_tiled() set-up (stack, H2D, relayout) {setup_s:.3f} s; "
+        f"tile_batch alone (H2D + on-device relayout) median {tile_s[1] * 1e3:.1f} ms "
+        f"of {', '.join(f'{s * 1e3:.1f}' for s in tile_s)} ms")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bitmap = fn(tb)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"tiled path: verify_batch_tiled(B={N_PROOFS}) first run {first_s:.3f} s, "
+        f"launches {counts}")
+    check(tuple(bitmap.shape) == (N_PROOFS,), f"tiled bitmap shape {tuple(bitmap.shape)}")
+    n_ok = int(bitmap.sum().item())
+    check(n_ok == N_PROOFS, f"tiled: {N_PROOFS - n_ok} of {N_PROOFS} valid proofs rejected")
+    log(f"tiled path: all {N_PROOFS} proofs accepted")
+    check_counts("tiled", counts)
+
+    slice_ms, runs = batch_ms(fn, tb)
+    log(f"tiled slice: {slice_ms:.3f} ms per {N_PROOFS}-proof batch "
+        f"({N_PROOFS / (slice_ms / 1e3):.1f} proofs/s; CUDA events, median of "
+        f"{len(runs)} runs: {', '.join(f'{r:.1f}' for r in runs)} ms)")
+
+    tamper = tiled.tile_batch(tamper_batch(proofs[0], 1 + PRODUCTION.n_inner_layers),
+                              PRODUCTION, "cuda")
+    ok_g, masks_g = verifier.verify_batch_tiled(tamper, PRODUCTION, with_masks=True)
+    check_tamper("tiled", ok_g, masks_g, *tamper_cpu)
+    return counts, slice_ms, fn, tb
+
+
+def phase_timings(rng, err):
+    """(f): each kernel against its plain version at the shapes the paths
+    give it at B = 4,096 (Q = 16, 9 FRI layers): compared bit for bit
+    (largest difference into `err`; K4/K5's even proofs carry valid paths,
+    so both ok values must occur), then timed; K1-K3 through their
+    wrappers (int64 words, relayout included), K4-K5 on the tiled batch's
+    int32 arrays.  Returns rows (name, what, kernel ms, plain ms, bound ms,
+    bound by, compressions)."""
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch.ops import fri, merkle, sha256
+    from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
     from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
-    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.ops.u32 import from_i32, from_numpy, to_i32
 
     bq = N_PROOFS * 16
 
     def words(*shape):
         return from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint32), "cuda")
 
+    def i32(args):
+        return [to_i32(a).contiguous() if isinstance(a, torch.Tensor) else a
+                for a in args]
+
     # per-proof FRI layer depths 12..4, 16 queries each, as the slice pads them
     fri_depths = np.repeat(np.arange(12, 3, -1), 16)
-    cases = [
+    depths = tuple(range(12, 3, -1))
+    lw_trace = leafwalk_case(rng, N_PROOFS, 16, 4, 13, "cuda")
+    lw_cp = leafwalk_case(rng, N_PROOFS, 16, 16, 13, "cuda")
+    fri_args = fri_case(rng, N_PROOFS, 16, depths, "cuda") + [depths]
+    cases = [  # (name, what, arguments; K4/K5's kernel takes them as int32)
         ("sha256_words", "transcript n=9", (words(N_PROOFS, 9),)),
         ("sha256_words", "transcript n=88", (words(N_PROOFS, 88),)),
         ("sha256_words", f"trace leaf n=4, {bq} lanes", (words(bq, 4),)),
@@ -314,30 +624,48 @@ def phase_timings(rng, err):
         ("merkle_walk", f"FRI walk depths 12..4, {9 * bq} lanes",
          (words(N_PROOFS, 144, 8), words(N_PROOFS, 144) & 0xFFF,
           words(N_PROOFS, 144, 12, 8), fri_depths)),
+        ("leafwalk", f"trace n_words=4, depth 13, {bq} lanes", lw_trace),
+        ("leafwalk", f"cp n_words=16, depth 13, {bq} lanes", lw_cp),
+        ("fri_all_layers", f"9 layers, depths 12..4, {bq} lanes", fri_args),
     ]
     kern = {"sha256_words": ck.sha256_words, "sha256_pair": ck.sha256_pair,
-            "merkle_walk": ck.merkle_compute_root}
+            "merkle_walk": ck.merkle_compute_root, "leafwalk": fk.leafwalk,
+            "fri_all_layers": fk.fri_all_layers}
     plain = {"sha256_words": sha256.sha256_words_plain,
              "sha256_pair": sha256.sha256_pair_plain,
-             "merkle_walk": merkle.compute_root_plain}
+             "merkle_walk": merkle.compute_root_plain,
+             "leafwalk": fri.leafwalk_plain,
+             "fri_all_layers": fri.fri_all_layers_plain}
     rows = []
     for name, what, args in cases:
-        got, want = kern[name](*args), plain[name](*args)
-        diff = int((got - want).abs().max().item())
-        err[name] = max(err[name], diff)
-        check(torch.equal(got, want), f"{name} != plain ({what}), max |diff| {diff}")
-        k_ms = cuda_ms(lambda: kern[name](*args), 20)
+        kargs = i32(args) if name in ("leafwalk", "fri_all_layers") else args
+        outs = kern[name](*kargs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        want = plain[name](*args)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(outs, want):
+            g = from_i32(g) if g.dtype == torch.int32 else g
+            diff = int((g - w).abs().max().item())
+            err[name] = max(err[name], diff)
+            check(torch.equal(g, w), f"{name} != plain ({what}), max |diff| {diff}")
+        if name in ("leafwalk", "fri_all_layers"):
+            n_ok, size = int(outs[0].sum().item()), outs[0].numel()
+            check(0 < n_ok < size, f"{name} ({what}): {n_ok} of {size} checks ok, "
+                  "want both values")
+        b_ms, b_by, compr = bound(name, kargs, outs)
+        k_ms = cuda_ms(lambda: kern[name](*kargs), 20)
         p_ms = cuda_ms(lambda: plain[name](*args), 2)
-        rows.append((name, what, k_ms, p_ms))
+        rows.append((name, what, k_ms, p_ms, b_ms, b_by, compr))
         log(f"time {name} [{what}]: bit-equal; kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.3f} ms ({p_ms / k_ms:.1f}x)")
+            f"{p_ms:.3f} ms ({p_ms / k_ms:.1f}x); bound {b_ms:.4f} ms by {b_by}; "
+            f"{compr} compressions, {compr / (k_ms / 1e3) / 1e9:.2f} G/s")
     return rows
 
 
-def phase_profile(fn, batch, slice_ms):
-    """torch.profiler over one slice run at B = 4,096: the device-time table,
-    the device's busy share of the unprofiled batch time, and the three
-    kernels' own device time."""
+def phase_profile(path, fn, batch, slice_ms):
+    """(f): torch.profiler over one batch of `path` at B = 4,096: the
+    device-time table, the device's busy share of the unprofiled batch
+    time, and the path's kernels' own device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -350,14 +678,17 @@ def phase_profile(fn, batch, slice_ms):
     # device-side rows only: an operator's row repeats its kernels' time
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile: device busy {busy_ms:.1f} ms in {sum(e.count for e in kernels)} "
-        f"launches, {100 * busy_ms / slice_ms:.1f} % of the {slice_ms:.1f} ms batch")
+    log(f"profile {path}: device busy {busy_ms:.1f} ms in "
+        f"{sum(e.count for e in kernels)} launches, "
+        f"{100 * busy_ms / slice_ms:.1f} % of the {slice_ms:.1f} ms batch")
     ours = [e for e in kernels if "stpu" in e.key]
     for e in ours:
-        log(f"profile: {e.key}: {e.self_device_time_total / 1e3:.3f} ms device "
-            f"in {e.count} launches")
-    check(busy_ms > 0 and len(ours) == len(KERNELS),
-          f"profile saw {len(ours)} of the {len(KERNELS)} kernels on the device")
+        log(f"profile {path}: {e.key}: {e.self_device_time_total / 1e3:.3f} ms "
+            f"device in {e.count} launches")
+    want = PATHS[path][1]
+    seen = [w for w in want if any(f"stpu::{w}(" in e.key for e in ours)]
+    check(busy_ms > 0 and len(seen) == len(want) == len(ours),
+          f"profile {path} saw {[e.key for e in ours]}, want {list(want)}")
 
 
 def main() -> int:
@@ -376,21 +707,26 @@ def main() -> int:
     proofs = E.production_proofs()
     log(f"fixtures: {len(proofs)} distinct PRODUCTION proofs loaded in "
         f"{time.perf_counter() - t0:.3f} s")
-    counts, slice_ms, fn, batch = phase_slice(proofs)  # (d), (e)
+    counts = {}
+    counts["standard"], std_ms, fn, batch, tamper_cpu = phase_slice(proofs)  # (d), (e)
+    counts["tiled"], tiled_ms, fn_t, tb = phase_tiled(proofs, tamper_cpu)  # (d'), (e)
     rows = phase_timings(rng, errs)  # (f)
-    phase_profile(fn, batch, slice_ms)
+    phase_profile("standard", fn, batch, std_ms)
+    phase_profile("tiled", fn_t, tb, tiled_ms)
 
-    largest = {}  # per kernel, its last timed shape: the slice's largest call
-    for name, what, k_ms, p_ms in rows:
-        largest[name] = (what, k_ms, p_ms)
+    largest = {}  # per kernel, its last timed shape: the path's largest call
+    for name, *row in rows:
+        largest[name] = row
     kernels = []
-    for name, (_, replaces) in KERNELS.items():
-        what, k_ms, p_ms = largest[name]
+    for name, (_, source, replaces) in KERNELS.items():
+        _, k_ms, p_ms, b_ms, b_by, _ = largest[name]
+        path = next(p for p, (want, _) in PATHS.items() if want[name] != 0)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"{PACKAGE}/csrc/sha256.cu", "replaces": replaces,
-            "launches": counts[name], "max_abs_err": errs[name],
-            "ms": k_ms, "plain_ms": p_ms,
+            "source": f"{PACKAGE}/{source}", "replaces": replaces,
+            "launches": counts[path][name], "max_abs_err": errs[name],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

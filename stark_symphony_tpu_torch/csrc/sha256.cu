@@ -31,39 +31,14 @@ namespace stpu {
 
 constexpr int kThreads = 256;
 
-// K1: per lane, SHA-256 of an n-word big-endian message.  The padding words
-// (0x80000000, zeros, 64-bit bit length) are produced in the kernel, so a
-// lane runs ceil((n + 3) / 16) compressions over its message alone.
+// K1: per lane, SHA-256 of an n-word big-endian message.
 __global__ void __launch_bounds__(kThreads)
 sha256_words_kernel(const uint32_t* __restrict__ msg, uint32_t* __restrict__ out,
                     int n, int lanes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= lanes) return;
-  const int n_blocks = (n + 3 + 15) / 16;
-  const int total = 16 * n_blocks;
-  const uint64_t bit_len = static_cast<uint64_t>(n) * 32u;
   uint32_t st[8];
-  set_iv(st);
-#pragma unroll 1
-  for (int blk = 0; blk < n_blocks; ++blk) {
-    uint32_t w[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int j = 16 * blk + k;
-      uint32_t x = 0u;
-      if (j < n) {
-        x = msg[static_cast<size_t>(j) * lanes + i];
-      } else if (j == n) {
-        x = 0x80000000u;
-      } else if (j == total - 2) {
-        x = static_cast<uint32_t>(bit_len >> 32);
-      } else if (j == total - 1) {
-        x = static_cast<uint32_t>(bit_len);
-      }
-      w[k] = x;
-    }
-    compress(st, w);
-  }
+  sha256_strided(msg + i, static_cast<size_t>(lanes), n, st);
 #pragma unroll
   for (int k = 0; k < 8; ++k) out[static_cast<size_t>(k) * lanes + i] = st[k];
 }
@@ -107,17 +82,8 @@ merkle_walk_kernel(const uint32_t* __restrict__ leaf,
 #pragma unroll 1
   for (int lvl = 0; lvl < depth; ++lvl) {
     if (static_cast<uint32_t>(lvl) < dep) {
-      const uint32_t* s = sibs + static_cast<size_t>(lvl) * 8 * lanes + i;
-      uint32_t sib[8], l[8], r[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) sib[k] = s[static_cast<size_t>(k) * lanes];
-      const bool odd = (idx & 1u) != 0u;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        l[k] = odd ? sib[k] : cur[k];
-        r[k] = odd ? cur[k] : sib[k];
-      }
-      node_hash(l, r, cur);
+      merkle_step(cur, idx, sibs + static_cast<size_t>(lvl) * 8 * lanes + i,
+                  static_cast<size_t>(lanes));
       idx >>= 1;
     }
   }

@@ -1,4 +1,4 @@
-// SHA-256 device code shared by the kernels in sha256.cu.
+// SHA-256 device code shared by the kernels in sha256.cu and fri.cu.
 //
 // Counterpart of the tile math in stark_symphony_tpu/ops/pallas/sha256_kernel.py:
 //   _rounds / _bsig* / _ssig*      -> sha_round, bsig0/1, ssig0/1
@@ -7,17 +7,23 @@
 //   _compress_tiles_const          -> compress_pad64() against kPad64Sched
 //   _PAD64_SCHED                   -> kPad64Sched
 //   _node_tiles                    -> node_hash()
+//   _sha_words_tiles               -> sha256_strided()
+//   one level of _walk_tiles       -> merkle_step()
 //
 // Every value here is one lane's: a thread hashes its own message, with its
 // working state and its 16-word schedule window in registers (the loops are
 // fully unrolled, so every array index is static).
+//
+// The tables are `static`: every .cu that includes this header gets its own
+// copy, so the translation units of one library do not clash at link time.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace stpu {
 
-__constant__ uint32_t kK[64] = {
+static __constant__ uint32_t kK[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
     0x923F82A4u, 0xAB1C5ED5u, 0xD807AA98u, 0x12835B01u, 0x243185BEu, 0x550C7DC3u,
     0x72BE5D74u, 0x80DEB1FEu, 0x9BDC06A7u, 0xC19BF174u, 0xE49B69C1u, 0xEFBE4786u,
@@ -30,14 +36,14 @@ __constant__ uint32_t kK[64] = {
     0x5B9CCA4Fu, 0x682E6FF3u, 0x748F82EEu, 0x78A5636Fu, 0x84C87814u, 0x8CC70208u,
     0x90BEFFFAu, 0xA4506CEBu, 0xBEF9A3F7u, 0xC67178F2u};
 
-__constant__ uint32_t kIV[8] = {
+static __constant__ uint32_t kIV[8] = {
     0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au, 0x510E527Fu, 0x9B05688Cu,
     0x1F83D9ABu, 0x5BE0CD19u};
 
 // Message schedule of the padding block of a 64-byte message (two digests):
 // W[0..15] = {0x80000000, 0, ..., 0, 512}, W[16..63] expanded.  The Merkle
 // node hash's second compression runs against it with no schedule work.
-__constant__ uint32_t kPad64Sched[64] = {
+static __constant__ uint32_t kPad64Sched[64] = {
     0x80000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
     0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
     0x00000000u, 0x00000000u, 0x00000000u, 0x00000200u, 0x80000000u, 0x01400000u,
@@ -137,6 +143,57 @@ __device__ __forceinline__ void node_hash(const uint32_t left[8],
   set_iv(out);
   compress(out, w);
   compress_pad64(out);
+}
+
+// SHA-256 of an n-word big-endian message whose word j lies at msg[j * stride]
+// (a lane of a word-major array).  The padding words (0x80000000, zeros,
+// 64-bit bit length) are produced here, so the lane runs ceil((n + 3) / 16)
+// compressions over its message alone.
+__device__ __forceinline__ void sha256_strided(const uint32_t* __restrict__ msg,
+                                               size_t stride, int n,
+                                               uint32_t st[8]) {
+  const int n_blocks = (n + 3 + 15) / 16;
+  const int total = 16 * n_blocks;
+  const uint64_t bit_len = static_cast<uint64_t>(n) * 32u;
+  set_iv(st);
+#pragma unroll 1
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    uint32_t w[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int j = 16 * blk + k;
+      uint32_t x = 0u;
+      if (j < n) {
+        x = msg[static_cast<size_t>(j) * stride];
+      } else if (j == n) {
+        x = 0x80000000u;
+      } else if (j == total - 2) {
+        x = static_cast<uint32_t>(bit_len >> 32);
+      } else if (j == total - 1) {
+        x = static_cast<uint32_t>(bit_len);
+      }
+      w[k] = x;
+    }
+    compress(st, w);
+  }
+}
+
+// One level of a Merkle walk: the sibling digest's word k lies at
+// s[k * stride]; the low index bit puts it on the left (odd) or on the right
+// (even) of `cur`, which becomes the node hash.
+__device__ __forceinline__ void merkle_step(uint32_t cur[8], uint32_t idx,
+                                            const uint32_t* __restrict__ s,
+                                            size_t stride) {
+  uint32_t sib[8], l[8], r[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sib[k] = s[static_cast<size_t>(k) * stride];
+  const bool odd = (idx & 1u) != 0u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    l[k] = odd ? sib[k] : cur[k];
+    r[k] = odd ? cur[k] : sib[k];
+  }
+  node_hash(l, r, cur);
 }
 
 }  // namespace stpu

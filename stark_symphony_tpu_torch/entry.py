@@ -1,12 +1,14 @@
-"""Entry point of the port's main path: the batched stwo verifier.
+"""Entry points of the port's main path: the batched stwo verifier.
 
 The PyTorch counterpart of ``__graft_entry__.entry()``: ``entry()`` returns
 ``(fn, (batch,))``, where ``batch`` is a stack of PRODUCTION proofs (trace
 2^9 x 4 columns, LDE 2^13, 16 queries, 8 inner FRI layers, 5 PoW bits)
 built from the 256 distinct committed fixtures and moved to `device`, and
-``fn`` is ``verify_batch(..., linkage="reference")``.  On a CUDA device
-every SHA-256 and Merkle call of the path runs in the kernels of
-``ops/cuda``.
+``fn`` is ``verify_batch(..., linkage="reference")``.  ``entry_tiled()`` is
+the same over the fast path: the batch is tiled once at ingestion
+(``tiled.tile_batch``) and ``fn`` is ``verify_batch_tiled``.  On a CUDA
+device every SHA-256, Merkle and fused-stage call of either path runs in
+the kernels of ``ops/cuda``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from .models.stwo import proof as P
-from .models.stwo import verifier
+from .models.stwo import tiled, verifier
 from .models.stwo.config import PRODUCTION
 from .utils.proofcache import cached_stwo_proof
 
@@ -49,3 +51,14 @@ def entry(n_proofs: int = 4096, device: str = "cuda", proofs=None):
         return verifier.verify_batch(b, PRODUCTION, linkage="reference")
 
     return fn, (batch,)
+
+
+def entry_tiled(n_proofs: int = 4096, device: str = "cuda", proofs=None):
+    """(fn, (tb,)) over n_proofs PRODUCTION proofs tiled on `device`;
+    `proofs` as in production_batch."""
+    tb = tiled.tile_batch(production_batch(n_proofs, proofs), PRODUCTION, device)
+
+    def fn(b):
+        return verifier.verify_batch_tiled(b, PRODUCTION)
+
+    return fn, (tb,)

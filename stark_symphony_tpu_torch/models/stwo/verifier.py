@@ -1,7 +1,10 @@
-"""Batched stwo circle-STARK verifier, standard path (PyTorch).
+"""Batched stwo circle-STARK verifier (PyTorch): standard and tiled paths.
 
-Port of the standard path of ``stark_symphony_tpu/models/stwo/verifier.py``:
+Port of ``stark_symphony_tpu/models/stwo/verifier.py``:
 commit -> OODS -> FRI commit -> PoW -> decommit -> DEEP quotients -> FRI.
+``verify`` is the standard path; ``verify_batch_tiled`` the fast path over
+a tiled batch (``tiled.tile_batch``), whose stages V and VII run fused
+(``ops/fri.py``).
 Every function is polymorphic over an optional leading proof-batch axis,
 so ``verify`` on stacked (B, ...) tensors checks the whole batch at once:
 SHA-256 and Merkle calls see B*Q lanes, and on a CUDA device they run in
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from ...ops import field as F
-from ...ops import merkle
+from ...ops import fri, merkle
 from ...ops.circle import (
     CircleDomain,
     circle_position_to_point,
@@ -29,7 +32,7 @@ from ...ops.circle import (
     query_point_table_on,
 )
 from ...ops.sha256 import sha256_pair, sha256_words
-from ...ops.u32 import WORD, bit_reverse, byte_swap32, lt64
+from ...ops.u32 import WORD, bit_reverse, byte_swap32, from_i32, lt64, to_i32
 from . import channel as ch
 from .config import StwoConfig
 from .constraints import REGISTRY
@@ -375,3 +378,81 @@ def verify_batch(proof_batch, cfg: StwoConfig, air: str = "wide_fibonacci",
                  linkage: str = "reference"):
     """Verify a stacked proof batch; returns the accept bitmap (B,)."""
     return verify(proof_batch, cfg, air, linkage)[0]
+
+
+def _i32(x):
+    """int64 words -> contiguous int32 bit patterns, as the fused stages
+    take them."""
+    return to_i32(x).contiguous()
+
+
+def verify_batch_tiled(tb, cfg: StwoConfig, air: str = "wide_fibonacci",
+                       linkage: str = "reference", with_masks: bool = False):
+    """Fast path: verify a tiled proof batch (``tiled.tile_batch``).
+
+    The same masks, under the same keys and in the same order, as
+    ``verify(..., linkage="reference")``, but the per-query stages run fused
+    (``ops/fri.py``): stage V is one leaf-hash + walk + root compare per
+    tree (K4 on a CUDA device), stage VII one pass over all FRI layers (K5).
+    Per-query words stay in the batch's word-major int32 layout, lane =
+    b * Q + q, so moving between (B, Q) and lanes is a reshape.
+
+    Returns the accept bitmap (B,), or (bitmap, masks) if with_masks."""
+    if linkage != "reference":
+        raise ValueError(f"the tiled path enforces linkage 'reference', not {linkage!r}")
+    eval_cp = REGISTRY[air]
+    b, q_n = tb.commitments.shape[0], cfg.n_queries
+    lanes = b * q_n
+    n_layers = 1 + cfg.n_inner_layers
+
+    masks = {}
+    queries, cp_alpha, oods_point, deep_alpha, fri_alphas = _stages_i_to_iv(
+        tb, cfg, eval_cp, masks
+    )
+    q_lanes = _i32(queries.reshape(lanes))
+
+    def proof_mask(ok):  # (lanes,) 0/1 -> (B,) all queries of the proof ok
+        return (ok.reshape(b, q_n) == 1).all(dim=-1)
+
+    # Stage V: fused leaf hash + walk + root compare, trace then CP
+    ok_t = fri.leafwalk(tb.trace_evals_t, q_lanes, tb.trace_sibs_t,
+                        _i32(tb.commitments[:, 1]))
+    ok_c = fri.leafwalk(tb.cp_evals_t, q_lanes, tb.cp_sibs_t,
+                        _i32(tb.commitments[:, 2]))
+    masks["trace_merkle"] = proof_mask(ok_t)
+    masks["cp_merkle"] = proof_mask(ok_c)
+
+    # Stage VI: DEEP quotients on the eval columns, widened to (B, Q, W)
+    def unlane(x):  # (W, lanes) int32 -> (B, Q, W) int64 words
+        return from_i32(x).reshape(-1, b, q_n).permute(1, 2, 0)
+
+    pts = query_points(cfg, queries)
+    answers = fri_answers(
+        cfg, queries, unlane(tb.trace_evals_t), unlane(tb.cp_evals_t),
+        deep_alpha, oods_point, tb.oods_trace, tb.oods_cp, pts=pts,
+    )
+
+    # Stage VII: all FRI layers in one pass
+    cinvs = batch_inv_m31(fri_fold_coords(cfg, queries, pts))
+    roots = torch.cat([tb.fri_first_commit[:, None], tb.fri_inner_commits], dim=1)
+    ok_l, folded, q_out = fri.fri_all_layers(
+        q_lanes,
+        _i32(answers.reshape(lanes, 4).t()),
+        tb.fri_wits_t,
+        _i32(torch.stack(cinvs).reshape(n_layers, lanes)),
+        _i32(torch.stack(fri_alphas, dim=1)),
+        tb.fri_sibs_t,
+        _i32(roots),
+        [cfg.fri_layer_depth(l) for l in range(n_layers)],
+    )
+    for l in range(n_layers):
+        masks[f"fri_merkle_{l}"] = proof_mask(ok_l[l])
+    masks["fri_last_eval"] = F.qm31_eq(
+        unlane(folded), tb.fri_last[:, None, :]).all(dim=-1)
+    if cfg.final_log_size == 0:
+        masks["fri_last_query"] = (q_out.reshape(b, q_n) == 0).all(dim=-1)
+
+    ok_all = None
+    for m in masks.values():
+        ok_all = m if ok_all is None else (ok_all & m)
+    return (ok_all, masks) if with_masks else ok_all

@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stark_symphony_tpu_torch"
@@ -32,12 +34,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes of the extern "C" launchers in csrc/sha256.cu; the last
-# two arguments of each are the device ordinal and the CUDA stream.
+# name -> argtypes of the extern "C" launchers in csrc/sha256.cu and
+# csrc/fri.cu; the last two arguments of each are the device ordinal and the
+# CUDA stream.
 _SIGNATURES = {
     "stpu_sha256_words": (_P, _P, _I, _I, _I, _P),
     "stpu_sha256_pair": (_P, _P, _P, _I, _I, _P),
     "stpu_merkle_walk": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "stpu_leafwalk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "stpu_fri_all_layers": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P),
 }
 
 
@@ -119,3 +125,15 @@ def load() -> Kernels:
         seconds = time.perf_counter() - t0
         log_path.write_text(log)
     return Kernels(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the launcher ``stpu_{name}`` for `device` on its current PyTorch
+    stream; tensors in `args` are passed as their data pointers.  Raises if
+    the launch was refused."""
+    fn = getattr(load(), f"stpu_{name}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = fn(*ptrs, device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")

@@ -59,14 +59,8 @@ def _from_word_major(out: torch.Tensor, bshape) -> torch.Tensor:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream; tensors in `args`
-    are passed as their data pointers."""
-    fn = getattr(build.load(), f"stpu_{name}")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*ptrs, device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    """Launch kernel `name` on `device`'s current stream and count it."""
+    build.launch(name, device, *args)
     launches[name] += 1
 
 
