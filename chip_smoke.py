@@ -11,11 +11,13 @@ tiled fast path, kernels K1, K4 and K5), in phases:
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
       name and power limit as nvidia-smi reports them;
   (b) build: compiles the kernels K1-K5 from ``stark_symphony_tpu_torch/csrc``
-      and prints ptxas's registers and spills for each;
+      (one nvcc process per source, all at once) and prints ptxas's
+      registers, shared memory and spills for each;
   (c) kernels: each kernel against its plain PyTorch version on the card, bit
-      for bit, on seeded random words at a ragged lane count (words >= P and
-      >= 2^31 included; about half the K4/K5 lanes carry valid paths), and a
-      few lanes against hashlib;
+      for bit, on seeded random words at ragged lane counts (words >= P and
+      >= 2^31 included; K1 and K3 at both of their block sizes, K3 with
+      per-lane and per-query depths and a broadcast sibling path; about half
+      the K4/K5 lanes carry valid paths), and a few lanes against hashlib;
   (d) standard path: 4,096 PRODUCTION proofs (the 256 committed fixtures, 16
       times each) must all be accepted; a 16-proof batch carrying the 15
       tamper classes in lanes 1-15 must reject exactly those lanes, with every
@@ -29,7 +31,10 @@ tiled fast path, kernels K1, K4 and K5), in phases:
   (f) at the shapes each path gives each kernel: kernel and plain version
       compared bit for bit again (K4/K5 on inputs where both ok values
       occur, as in (c)), then timed with CUDA events, beside each
-      path's proofs/s (median of 5 batches, each timed alone);
+      path's proofs/s (median of 5 batches, each timed alone); for K1 and
+      K3, torch.profiler over one wrapper call must show one device
+      activity, the stpu:: kernel itself, and K3 is timed in blocks of 32
+      and of 128 threads;
       torch.profiler over one batch of each path gives the device's busy
       share and each kernel's own device time.
 
@@ -53,7 +58,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PACKAGE = "stark_symphony_tpu_torch"
 N_PROOFS = 4096
-LANES = 4097  # not a multiple of the 256-thread block: the ragged edge runs
+LANES = 4097  # not a multiple of any block size: the ragged edge runs
+BIG_LANES = 33_793  # K1/K3 take 128-lane blocks from 33,792 lanes: 264 and 1
 
 # The 15 tamper classes of tests/test_pow_production.py (PROD_TAMPERS):
 # (field, mutation, index into a tuple field or None).  The port's CPU tests
@@ -377,22 +383,29 @@ def phase_kernels(rng):
     from stark_symphony_tpu_torch.ops.u32 import from_i32, from_numpy, to_i32, to_numpy
 
     err = {name: 0 for name in KERNELS}
+    check(ck.lane_threads(LANES) == 32 and ck.lane_threads(BIG_LANES) == 128,
+          "K1/K3 block sizes at LANES and BIG_LANES are not 32 and 128")
 
     def compare(name, got, want, what):
         diff = int((got - want).abs().max().item()) if got.numel() else 0
         err[name] = max(err[name], diff)
         check(torch.equal(got, want), f"{name} != plain ({what}), max |diff| {diff}")
 
-    for n in (4, 9, 10, 12, 16, 88):
-        msgs = rng.integers(0, 1 << 32, (LANES, n), dtype=np.uint32)
-        t = from_numpy(msgs, "cuda")
-        got = ck.sha256_words(t)
-        compare("sha256_words", got, sha256.sha256_words_plain(t), f"n={n}")
-        host = to_numpy(got)
-        for lane in (0, 1, LANES // 2, LANES - 1):
-            check(list(host[lane]) == _hashlib_words(msgs[lane]),
-                  f"sha256_words n={n} lane {lane} != hashlib")
-    log(f"K1 sha256_words: bit-equal to plain and hashlib, n in 4,9,10,12,16,88, {LANES} lanes")
+    # 4,097 lanes run 32-lane blocks; BIG_LANES run 128-lane ones (n = 88
+    # with 90 KB of shared memory a block); both leave a ragged last block,
+    # with an odd word count at odd n
+    for lanes, ns in ((LANES, (4, 9, 10, 12, 16, 88)), (BIG_LANES, (9, 88))):
+        for n in ns:
+            msgs = _words(rng, lanes, n)
+            t = from_numpy(msgs, "cuda")
+            got = ck.sha256_words(t)
+            compare("sha256_words", got, sha256.sha256_words_plain(t), f"n={n}, {lanes} lanes")
+            host = to_numpy(got)
+            for lane in (0, 1, lanes // 2, lanes - 1):
+                check(list(host[lane]) == _hashlib_words(msgs[lane]),
+                      f"sha256_words n={n} lane {lane} != hashlib")
+    log(f"K1 sha256_words: bit-equal to plain and hashlib, n in 4,9,10,12,16,88 at "
+        f"{LANES} lanes and 9,88 at {BIG_LANES}")
 
     left = rng.integers(0, 1 << 32, (LANES, 8), dtype=np.uint32)
     right = rng.integers(0, 1 << 32, (LANES, 8), dtype=np.uint32)
@@ -405,27 +418,42 @@ def phase_kernels(rng):
               f"sha256_pair lane {lane} != hashlib")
     log(f"K2 sha256_pair: bit-equal to plain and hashlib, {LANES} lanes")
 
-    for depth, ragged in ((13, False), (12, True)):
-        leaf = rng.integers(0, 1 << 32, (LANES, 8), dtype=np.uint32)
-        sibs = rng.integers(0, 1 << 32, (LANES, depth, 8), dtype=np.uint32)
-        idx = rng.integers(0, 1 << depth, LANES, dtype=np.uint32)
-        deps = (rng.integers(0, depth + 1, LANES) if ragged
-                else np.full(LANES, depth))
-        args = (from_numpy(leaf, "cuda"), from_numpy(idx, "cuda"),
-                from_numpy(sibs, "cuda"))
-        got = ck.merkle_compute_root(*args, deps if ragged else None)
-        want = merkle.compute_root_plain(*args, deps if ragged else None)
-        compare("merkle_walk", got, want, f"depth {depth} ragged={ragged}")
-        host = to_numpy(got)
-        for lane in (0, 1, LANES // 2, LANES - 1):
-            check(list(host[lane]) == _hashlib_root(leaf[lane], int(idx[lane]),
-                                                    sibs[lane], int(deps[lane])),
-                  f"merkle_walk depth {depth} lane {lane} != hashlib")
-    log(f"K3 merkle_walk: bit-equal to plain and hashlib, depth 13 and "
-        f"per-lane depths 0..12, {LANES} lanes")
+    # (batch shape, depth, per-path depths, sibling path shared by all
+    # lanes): full depth; per-lane depths 0..D; depths per query, periodic
+    # over the proofs as the FRI walk's are; a broadcast operand; 128-lane
+    # blocks (paths of one depth at BIG_LANES)
+    n_proofs, n_q = 241, 17  # LANES = 241 x 17
+    k3_cases = (
+        ((LANES,), 13, None, False),
+        ((LANES,), 12, rng.integers(0, 13, LANES), False),
+        ((n_proofs, n_q), 12, rng.integers(0, 13, n_q), False),
+        ((n_proofs, n_q), 12, rng.integers(0, 13, n_q), True),
+        ((BIG_LANES,), 13, None, False),
+    )
+    for bshape, depth, deps, shared in k3_cases:
+        lanes = int(np.prod(bshape))
+        leaf = _words(rng, *bshape, 8)
+        sibs = _words(rng, *((depth, 8) if shared else bshape + (depth, 8)))
+        idx = rng.integers(0, 1 << depth, bshape, dtype=np.uint32)
+        args = (from_numpy(leaf, "cuda"), from_numpy(idx, "cuda"), from_numpy(sibs, "cuda"))
+        got = ck.merkle_compute_root(*args, deps)
+        want = merkle.compute_root_plain(*args, deps)
+        what = (f"{bshape} depth {depth}, depths "
+                f"{'none' if deps is None else np.shape(deps)}, shared path {shared}")
+        compare("merkle_walk", got, want, what)
+        host = to_numpy(got).reshape(lanes, 8)
+        lane_deps = np.broadcast_to(depth if deps is None else deps, bshape).reshape(-1)
+        flat_sibs = np.broadcast_to(sibs, bshape + (depth, 8)).reshape(lanes, depth, 8)
+        for lane in (0, 1, lanes // 2, lanes - 1):
+            check(list(host[lane]) == _hashlib_root(leaf.reshape(lanes, 8)[lane],
+                                                    int(idx.reshape(-1)[lane]),
+                                                    flat_sibs[lane], int(lane_deps[lane])),
+                  f"merkle_walk ({what}) lane {lane} != hashlib")
+    log(f"K3 merkle_walk: bit-equal to plain and hashlib at {LANES} lanes (depth 13; "
+        f"per-lane depths 0..12; per-query depths over {n_proofs} x {n_q}, with and "
+        f"without a shared sibling path) and at {BIG_LANES} lanes")
 
     # K4, K5: LANES = 241 proofs x 17 queries; even proofs carry valid paths
-    n_proofs, n_q = 241, 17
     for n_words in (4, 16):
         args = leafwalk_case(rng, n_proofs, n_q, n_words, 13, "cuda")
         got = from_i32(fk.leafwalk(*[to_i32(a).contiguous() for a in args]))
@@ -586,9 +614,10 @@ def phase_timings(rng, err):
     give it at B = 4,096 (Q = 16, 9 FRI layers): compared bit for bit
     (largest difference into `err`; K4/K5's even proofs carry valid paths,
     so both ok values must occur), then timed; K1-K3 through their
-    wrappers (int64 words, relayout included), K4-K5 on the tiled batch's
-    int32 arrays.  Returns rows (name, what, kernel ms, plain ms, bound ms,
-    bound by, compressions)."""
+    wrappers on int64 words (K2's relayout included), K4-K5 on the tiled
+    batch's int32 arrays; K1 and K3 must launch one kernel a call and
+    nothing else (``one_kernel_each``).  Returns rows (name, what, kernel ms,
+    plain ms, bound ms, bound by, compressions)."""
     import numpy as np
     import torch
 
@@ -636,7 +665,7 @@ def phase_timings(rng, err):
              "merkle_walk": merkle.compute_root_plain,
              "leafwalk": fri.leafwalk_plain,
              "fri_all_layers": fri.fri_all_layers_plain}
-    rows = []
+    rows, single = [], []  # single: the K1/K3 calls for one_kernel_each
     for name, what, args in cases:
         kargs = i32(args) if name in ("leafwalk", "fri_all_layers") else args
         outs = kern[name](*kargs)
@@ -655,25 +684,95 @@ def phase_timings(rng, err):
         b_ms, b_by, compr = bound(name, kargs, outs)
         k_ms = cuda_ms(lambda: kern[name](*kargs), 20)
         p_ms = cuda_ms(lambda: plain[name](*args), 2)
+        if name in ("sha256_words", "merkle_walk"):
+            single.append((name, what, lambda f=kern[name], a=kargs: f(*a)))
         rows.append((name, what, k_ms, p_ms, b_ms, b_by, compr))
         log(f"time {name} [{what}]: bit-equal; kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.3f} ms ({p_ms / k_ms:.1f}x); bound {b_ms:.4f} ms by {b_by}; "
             f"{compr} compressions, {compr / (k_ms / 1e3) / 1e9:.2f} G/s")
+    dev_ms = one_kernel_each([(name, fn) for name, _, fn in single])
+    for (name, what, _), ms in zip(single, dev_ms):
+        log(f"profile {name} [{what}]: one launch a call, {ms:.4f} ms on the device")
+    # K3's block size at the main path's shapes: the wrapper's choice
+    # (ck.walk_threads) against the other one
+    rule = ck.walk_threads
+    try:
+        for name, what, fn in single:
+            if name == "merkle_walk":
+                times = []
+                for threads in (32, 128):
+                    ck.walk_threads = lambda lanes, depths, t=threads: t
+                    times.append(f"{threads} threads {cuda_ms(fn, 20):.4f} ms")
+                log(f"K3 block size [{what}]: {', '.join(times)} a call")
+    finally:
+        ck.walk_threads = rule
     return rows
 
 
-def phase_profile(path, fn, batch, slice_ms):
-    """(f): torch.profiler over one batch of `path` at B = 4,096: the
-    device-time table, the device's busy share of the unprofiled batch
-    time, and the path's kernels' own device time."""
-    import torch
+def _device_events(prof) -> list:
+    """The device activities of a torch.profiler run, in start order."""
     from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sorted(dev, key=lambda e: e.time_range.start)
+
+
+def _profiled(fn, complete):
+    """torch.profiler over fn(), taken again, up to three times in all,
+    while complete(profile) is false: on the card the profiler has been
+    seen to miss a kernel now and then (PERF.md)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(batch)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if complete(prof):
+            break
+    return prof
+
+
+def one_kernel_each(calls) -> list:
+    """(f): torch.profiler over one call of each wrapper in `calls`, a list
+    of (kernel name, fn), each after a warm-up call and each followed by a
+    synchronize: the device ran exactly one activity a call, that call's
+    stpu:: kernel, and no other kernel or copy.  Returns each call's device
+    ms."""
+    import torch
+
+    def run_all():
+        for _, fn in calls:
+            fn()
+            torch.cuda.synchronize()
+
+    run_all()
+    dev = _device_events(_profiled(run_all, lambda p: len(_device_events(p)) >= len(calls)))
+    seen = [e.name for e in dev]
+    check(len(dev) == len(calls) and all(
+        f"stpu::{name}_kernel(" in e.name for (name, _), e in zip(calls, dev)),
+        f"{len(calls)} K1/K3 calls ran {seen} on the device, want one stpu:: "
+        "kernel a call")
+    return [e.time_range.elapsed_us() / 1e3 for e in dev]
+
+
+def phase_profile(path, fn, batch, slice_ms, counts):
+    """(f): torch.profiler over one batch of `path` at B = 4,096: the
+    device-time table, the device's busy share of the unprofiled batch
+    time, and the path's kernels' own device time, with the launches the
+    profiler saw beside those counted in (e)."""
+    from torch.autograd import DeviceType
+
+    want = PATHS[path][1]
+
+    def ours(events):
+        return [e for e in events if e.device_type == DeviceType.CUDA and "stpu" in e.key]
+
+    def complete(prof):
+        keys = [e.key for e in ours(prof.key_averages())]
+        return all(any(f"stpu::{w}(" in k for k in keys) for w in want)
+
+    events = _profiled(lambda: fn(batch), complete).key_averages()
     log(events.table(sort_by="self_cuda_time_total", row_limit=15))
     # device-side rows only: an operator's row repeats its kernels' time
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -681,14 +780,15 @@ def phase_profile(path, fn, batch, slice_ms):
     log(f"profile {path}: device busy {busy_ms:.1f} ms in "
         f"{sum(e.count for e in kernels)} launches, "
         f"{100 * busy_ms / slice_ms:.1f} % of the {slice_ms:.1f} ms batch")
-    ours = [e for e in kernels if "stpu" in e.key]
-    for e in ours:
+    mine = ours(events)
+    for e in mine:
+        name = e.key.split("(")[0].removeprefix("stpu::").removesuffix("_kernel")
+        counted = counts.get("fri_all_layers" if name == "fri" else name)
         log(f"profile {path}: {e.key}: {e.self_device_time_total / 1e3:.3f} ms "
-            f"device in {e.count} launches")
-    want = PATHS[path][1]
-    seen = [w for w in want if any(f"stpu::{w}(" in e.key for e in ours)]
-    check(busy_ms > 0 and len(seen) == len(want) == len(ours),
-          f"profile {path} saw {[e.key for e in ours]}, want {list(want)}")
+            f"device in {e.count} launches (counted: {counted})")
+    seen = [w for w in want if any(f"stpu::{w}(" in e.key for e in mine)]
+    check(busy_ms > 0 and len(seen) == len(want) == len(mine),
+          f"profile {path} saw {[e.key for e in mine]}, want {list(want)}")
 
 
 def main() -> int:
@@ -711,8 +811,8 @@ def main() -> int:
     counts["standard"], std_ms, fn, batch, tamper_cpu = phase_slice(proofs)  # (d), (e)
     counts["tiled"], tiled_ms, fn_t, tb = phase_tiled(proofs, tamper_cpu)  # (d'), (e)
     rows = phase_timings(rng, errs)  # (f)
-    phase_profile("standard", fn, batch, std_ms)
-    phase_profile("tiled", fn_t, tb, tiled_ms)
+    phase_profile("standard", fn, batch, std_ms, counts["standard"])
+    phase_profile("tiled", fn_t, tb, tiled_ms, counts["tiled"])
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:

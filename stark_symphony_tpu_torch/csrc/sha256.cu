@@ -9,42 +9,100 @@
 // What bounds them: 32-bit integer issue, not bytes.  A compression reads
 // about 64 B and writes 32 B but issues some 64 x 20 integer operations, so
 // the kernels keep the whole working set in registers and touch device
-// memory only for their inputs and outputs.
+// memory only for their inputs and outputs.  One lane (one message, one
+// Merkle path) runs on one thread.
 //
-// Layout: one lane (one message, one Merkle path) per thread.  Arrays are
-// word-major, (W, lanes): thread i reads word j at j * lanes + i, so the 32
-// threads of a warp read 128 consecutive bytes for every word.  The grid is
-// ceil(lanes / 256) blocks and the last block masks its ragged edge; there
-// is no tile geometry and no lane padding.
+// K1 and K3 read the verifier's int64 words where they lie, lane-major:
+// K1 a (lanes, n) message array, K3 a (lanes, 8) leaf, a (lanes,) index and
+// (lanes, depth, 8) siblings; each uses the low 32 bits of an element (the
+// word) and writes its (lanes, 8) int64 result, each word in [0, 2^32).  A
+// thread's words are n * 8 bytes apart, so instead of reading them from
+// device memory one strided word at a time, a block stages its lanes in
+// shared memory with the copy engine (tma.cuh):
+//   K1: its lanes' messages are one contiguous slab, brought in by one 1-D
+//       bulk copy (the odd last word of a ragged block by an ordinary load);
+//   K3: the leaf and index slabs by bulk copies, then the siblings level by
+//       level through a two-stage ring, each level a 2-D tensor-map box of
+//       `threads` rows of 64 bytes, so that level l + 2 is in flight while
+//       level l is hashed.  A block stops at the deepest of its lanes.  A
+//       stage is refilled only after every thread has read it and passed a
+//       proxy fence and a barrier: without the fence, blocks of 64 and 128
+//       threads gave wrong roots on the card (a queued read saw the next
+//       level's siblings).
+// The result goes back through shared memory, so its int64 stores
+// coalesce.  The block size is the launcher's argument (32 to 128 threads):
+// the wrapper takes blocks of 32 at small lane counts, so that the
+// transcript's 4,096 lanes still spread over 128 SMs, and for K3 paths of
+// per-lane depths, since a block walks to its deepest lane.
+//
+// K2 stays word-major: it takes (8, lanes) int32 arrays, read one word of
+// 32 lanes per 128-byte load.
 //
 // Each launcher takes its device and PyTorch's current stream, launches,
-// and returns cudaGetLastError() so the Python wrapper can raise on a
-// refused launch.
+// and returns cudaGetLastError() (or the error of its own checks) so the
+// Python wrapper can raise on a refused launch.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "sha256.cuh"
+#include "tma.cuh"
 
 namespace stpu {
 
-constexpr int kThreads = 256;
+constexpr int kPairThreads = 256;
+constexpr int kMaxLaneThreads = 128;   // K1 and K3 blocks: 32 to 128 threads
+constexpr size_t kMaxSmem = 232448;    // opt-in shared memory of one block
+constexpr size_t kDefaultSmem = 49152; // above this, the kernel must opt in
 
-// K1: per lane, SHA-256 of an n-word big-endian message.
-__global__ void __launch_bounds__(kThreads)
-sha256_words_kernel(const uint32_t* __restrict__ msg, uint32_t* __restrict__ out,
+// K1: per lane, SHA-256 of an n-word big-endian message.  msg (lanes, n),
+// out (lanes, 8), both int64.  Shared memory: the block's message slab of
+// threads * max(n, 8) elements (it takes the digests on the way out), then
+// one mbarrier.
+__global__ void __launch_bounds__(kMaxLaneThreads)
+sha256_words_kernel(const uint64_t* __restrict__ msg, uint64_t* __restrict__ out,
                     int n, int lanes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  uint32_t st[8];
-  sha256_strided(msg + i, static_cast<size_t>(lanes), n, st);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int threads = blockDim.x, tid = threadIdx.x;
+  const int first = blockIdx.x * threads;
+  const int count = min(threads, lanes - first);
+  uint64_t* slab = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* bar = slab + static_cast<size_t>(threads) * max(n, 8);
+  const uint64_t* src = msg + static_cast<size_t>(first) * n;
+  const uint32_t total = static_cast<uint32_t>(count) * n;  // elements
+  const uint32_t bulk = total & ~1u;                       // whole 16 B units
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0 && bulk) {
+    mbar_expect_tx(bar, bulk * 8u);
+    bulk_g2s(slab, src, bulk * 8u, bar);
+  }
+  for (uint32_t e = bulk + tid; e < total; e += threads) slab[e] = src[e];
+  __syncthreads();
+  if (bulk) mbar_wait(bar, 0);
+
+  uint32_t st[8] = {};
+  if (tid < count) sha256_lanes(slab + static_cast<size_t>(tid) * n, n, st);
+  __syncthreads();  // every message is read: the slab takes the digests
+  if (tid < count) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) out[static_cast<size_t>(k) * lanes + i] = st[k];
+    for (int k = 0; k < 8; ++k) slab[tid * 8 + k] = st[k];
+  }
+  __syncthreads();
+  uint64_t* dst = out + static_cast<size_t>(first) * 8;
+  for (int e = tid; e < count * 8; e += threads) dst[e] = slab[e];
 }
 
-// K2: per lane, the Merkle node hash sha256(left || right).
-__global__ void __launch_bounds__(kThreads)
+// K2: per lane, the Merkle node hash sha256(left || right); (8, lanes) int32.
+__global__ void __launch_bounds__(kPairThreads)
 sha256_pair_kernel(const uint32_t* __restrict__ left,
                    const uint32_t* __restrict__ right, uint32_t* __restrict__ out,
                    int lanes) {
@@ -64,46 +122,153 @@ sha256_pair_kernel(const uint32_t* __restrict__ left,
 // K3: per lane, walk the authentication path from the leaf digest and return
 // the root.  At level lvl the low index bit puts the sibling on the left
 // (odd) or on the right (even).  A lane stops at its own true depth: levels
-// at or beyond depths[i] leave its digest and its index unchanged, exactly
-// as the `active` mask of _walk_tiles does.  sibs is (depth, 8, lanes).
-__global__ void __launch_bounds__(kThreads)
-merkle_walk_kernel(const uint32_t* __restrict__ leaf,
-                   const uint32_t* __restrict__ index,
-                   const uint32_t* __restrict__ depths,
-                   const uint32_t* __restrict__ sibs, uint32_t* __restrict__ out,
-                   int depth, int lanes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
+// at or beyond it leave its digest and its index unchanged, exactly as the
+// `active` mask of _walk_tiles does.  The depth of lane i is
+// depths[i % period], or `depth` for every lane when depths is null.
+//
+// sib_map is the 2-D tensor map of the (lanes, depth, 8) siblings seen as
+// (lanes rows) x (depth * 8 elements); the box of level lvl for a block is
+// its rows at columns [8 lvl, 8 lvl + 8).  Shared memory: the ring's two
+// stages of threads x 8 elements, the leaf slab (the roots on the way out),
+// the index slab, three mbarriers (leaf and index; stage 0; stage 1) and
+// the block's level count.
+__global__ void __launch_bounds__(kMaxLaneThreads)
+merkle_walk_kernel(const __grid_constant__ CUtensorMap sib_map,
+                   const uint64_t* __restrict__ leaf,
+                   const uint64_t* __restrict__ index,
+                   const int32_t* __restrict__ depths, int period,
+                   uint64_t* __restrict__ out, int depth, int lanes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int threads = blockDim.x, tid = threadIdx.x;
+  const int first = blockIdx.x * threads;
+  const int count = min(threads, lanes - first);
+  const int row = threads * 8;  // elements of one stage
+  uint64_t* ring = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* leaf_s = ring + 2 * row;
+  uint64_t* idx_s = leaf_s + row;
+  uint64_t* bars = idx_s + threads;
+  int* levels = reinterpret_cast<int*>(bars + 3);
+
+  int dep = 0;
+  if (tid < count) {
+    dep = depths ? depths[(first + tid) % period] : depth;
+    dep = max(0, min(dep, depth));
+  }
+  if (tid == 0) {
+    for (int b = 0; b < 3; ++b) mbar_init(bars + b, 1);
+    fence_mbar_init();
+    *levels = 0;
+  }
+  __syncthreads();
+  atomicMax(levels, dep);
+  if (tid == 0) {
+    const uint32_t leaf_bytes = static_cast<uint32_t>(count) * 64u;
+    const uint32_t idx_bytes = static_cast<uint32_t>(count & ~1) * 8u;
+    mbar_expect_tx(bars, leaf_bytes + idx_bytes);
+    bulk_g2s(leaf_s, leaf + static_cast<size_t>(first) * 8, leaf_bytes, bars);
+    if (idx_bytes) bulk_g2s(idx_s, index + first, idx_bytes, bars);
+  }
+  if ((count & 1) && tid == count - 1) idx_s[tid] = index[first + tid];
+  __syncthreads();  // the level count is final
+  const int n_levels = *levels;
+  if (tid == 0) {
+    for (int s = 0; s < 2 && s < n_levels; ++s) {
+      mbar_expect_tx(bars + 1 + s, static_cast<uint32_t>(row) * 8u);
+      tensor_g2s(ring + s * row, &sib_map, 8 * s, first, bars + 1 + s);
+    }
+  }
+
+  mbar_wait(bars, 0);
   uint32_t cur[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) cur[k] = leaf[static_cast<size_t>(k) * lanes + i];
-  uint32_t idx = index[i];
-  const uint32_t dep = depths[i];
+  for (int k = 0; k < 8; ++k) cur[k] = static_cast<uint32_t>(leaf_s[tid * 8 + k]);
+  uint32_t idx = static_cast<uint32_t>(idx_s[tid]);
 #pragma unroll 1
-  for (int lvl = 0; lvl < depth; ++lvl) {
-    if (static_cast<uint32_t>(lvl) < dep) {
-      merkle_step(cur, idx, sibs + static_cast<size_t>(lvl) * 8 * lanes + i,
-                  static_cast<size_t>(lanes));
+  for (int lvl = 0; lvl < n_levels; ++lvl) {
+    const int s = lvl & 1;
+    uint64_t* stage = ring + s * row;
+    mbar_wait(bars + 1 + s, (lvl >> 1) & 1);
+    uint32_t sib[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sib[k] = static_cast<uint32_t>(stage[tid * 8 + k]);
+    fence_proxy_async();
+    __syncthreads();  // the stage is read: refill it with level lvl + 2
+    if (tid == 0 && lvl + 2 < n_levels) {
+      mbar_expect_tx(bars + 1 + s, static_cast<uint32_t>(row) * 8u);
+      tensor_g2s(stage, &sib_map, 8 * (lvl + 2), first, bars + 1 + s);
+    }
+    if (lvl < dep) {
+      merkle_node(cur, idx, sib);
       idx >>= 1;
     }
   }
+
+  // each thread overwrites only its own leaf row, which only it has read
+  if (tid < count) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) out[static_cast<size_t>(k) * lanes + i] = cur[k];
+    for (int k = 0; k < 8; ++k) leaf_s[tid * 8 + k] = cur[k];
+  }
+  __syncthreads();
+  uint64_t* dst = out + static_cast<size_t>(first) * 8;
+  for (int e = tid; e < count * 8; e += threads) dst[e] = leaf_s[e];
 }
 
-inline int blocks_for(int lanes) { return (lanes + kThreads - 1) / kThreads; }
+inline bool lane_threads_ok(int threads) {
+  return threads >= 32 && threads <= kMaxLaneThreads && threads % 32 == 0;
+}
+
+inline size_t words_smem(int n, int threads) {
+  return static_cast<size_t>(threads) * (n > 8 ? n : 8) * 8 + 8;
+}
+
+inline size_t walk_smem(int threads) {
+  // two stages and the leaf slab of 64 B a lane, the index slab of 8 B a
+  // lane, three barriers, the level count (padded to 8 B)
+  return static_cast<size_t>(threads) * (3 * 64 + 8) + 4 * 8;
+}
+
+// cuTensorMapEncodeTiled, fetched from libcuda through the runtime, so the
+// library needs no link against it.
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
 
 }  // namespace stpu
 
 extern "C" {
 
-int stpu_sha256_words(const void* msg, void* out, int n, int lanes, int device,
-                      void* stream) {
+// Launchers of K1 and K3 return this for arguments their kernels do not
+// take, and kEncodeFailed + the CUresult when the tensor map is refused.
+constexpr int kBadArgument = static_cast<int>(cudaErrorInvalidValue);
+constexpr int kEncodeFailed = 100000;
+
+int stpu_sha256_words(const void* msg, void* out, int n, int lanes, int threads,
+                      int device, void* stream) {
+  if (n < 1 || lanes < 1 || !stpu::lane_threads_ok(threads)) return kBadArgument;
+  const size_t smem = stpu::words_smem(n, threads);
+  if (smem > stpu::kMaxSmem) return kBadArgument;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stpu::sha256_words_kernel<<<stpu::blocks_for(lanes), stpu::kThreads, 0,
+  if (smem > stpu::kDefaultSmem) {
+    err = cudaFuncSetAttribute(stpu::sha256_words_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (lanes + threads - 1) / threads;
+  stpu::sha256_words_kernel<<<blocks, threads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(msg), static_cast<uint32_t*>(out), n, lanes);
+      static_cast<const uint64_t*>(msg), static_cast<uint64_t*>(out), n, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -111,7 +276,8 @@ int stpu_sha256_pair(const void* left, const void* right, void* out, int lanes,
                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stpu::sha256_pair_kernel<<<stpu::blocks_for(lanes), stpu::kThreads, 0,
+  const int blocks = (lanes + stpu::kPairThreads - 1) / stpu::kPairThreads;
+  stpu::sha256_pair_kernel<<<blocks, stpu::kPairThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(left), static_cast<const uint32_t*>(right),
       static_cast<uint32_t*>(out), lanes);
@@ -119,15 +285,36 @@ int stpu_sha256_pair(const void* left, const void* right, void* out, int lanes,
 }
 
 int stpu_merkle_walk(const void* leaf, const void* index, const void* depths,
-                     const void* sibs, void* out, int depth, int lanes, int device,
-                     void* stream) {
+                     int period, const void* sibs, void* out, int depth, int lanes,
+                     int threads, int device, void* stream) {
+  if (depth < 0 || lanes < 1 || !stpu::lane_threads_ok(threads) ||
+      (depths != nullptr && period < 1)) {
+    return kBadArgument;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stpu::merkle_walk_kernel<<<stpu::blocks_for(lanes), stpu::kThreads, 0,
+  CUtensorMap map;
+  std::memset(&map, 0, sizeof(map));
+  if (depth > 0) {
+    PFN_cuTensorMapEncodeTiled_v12000 encode = stpu::encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[2] = {8ull * depth, static_cast<cuuint64_t>(lanes)};
+    const cuuint64_t strides[1] = {8ull * depth * sizeof(uint64_t)};
+    const cuuint32_t box[2] = {8u, static_cast<cuuint32_t>(threads)};
+    const cuuint32_t elem_strides[2] = {1u, 1u};
+    const CUresult res = encode(
+        &map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 2, const_cast<void*>(sibs), dims,
+        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return kEncodeFailed + static_cast<int>(res);
+  }
+  const int blocks = (lanes + threads - 1) / threads;
+  stpu::merkle_walk_kernel<<<blocks, threads, stpu::walk_smem(threads),
                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(leaf), static_cast<const uint32_t*>(index),
-      static_cast<const uint32_t*>(depths), static_cast<const uint32_t*>(sibs),
-      static_cast<uint32_t*>(out), depth, lanes);
+      map, static_cast<const uint64_t*>(leaf), static_cast<const uint64_t*>(index),
+      static_cast<const int32_t*>(depths), period, static_cast<uint64_t*>(out),
+      depth, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,8 +7,11 @@
 //   _compress_tiles_const          -> compress_pad64() against kPad64Sched
 //   _PAD64_SCHED                   -> kPad64Sched
 //   _node_tiles                    -> node_hash()
-//   _sha_words_tiles               -> sha256_strided()
-//   one level of _walk_tiles       -> merkle_step()
+//   _sha_words_tiles               -> sha256_message(), read word-major by
+//                                     sha256_strided() (K4, K5) and
+//                                     lane-major by sha256_lanes() (K1)
+//   one level of _walk_tiles       -> merkle_node(), read word-major by
+//                                     merkle_step() (K4, K5)
 //
 // Every value here is one lane's: a thread hashes its own message, with its
 // working state and its 16-word schedule window in registers (the loops are
@@ -145,12 +148,11 @@ __device__ __forceinline__ void node_hash(const uint32_t left[8],
   compress_pad64(out);
 }
 
-// SHA-256 of an n-word big-endian message whose word j lies at msg[j * stride]
-// (a lane of a word-major array).  The padding words (0x80000000, zeros,
-// 64-bit bit length) are produced here, so the lane runs ceil((n + 3) / 16)
-// compressions over its message alone.
-__device__ __forceinline__ void sha256_strided(const uint32_t* __restrict__ msg,
-                                               size_t stride, int n,
+// SHA-256 of an n-word big-endian message whose word j is word(j).  The
+// padding words (0x80000000, zeros, 64-bit bit length) are produced here,
+// so the lane runs ceil((n + 3) / 16) compressions over its message alone.
+template <class Word>
+__device__ __forceinline__ void sha256_message(const Word& word, int n,
                                                uint32_t st[8]) {
   const int n_blocks = (n + 3 + 15) / 16;
   const int total = 16 * n_blocks;
@@ -164,7 +166,7 @@ __device__ __forceinline__ void sha256_strided(const uint32_t* __restrict__ msg,
       const int j = 16 * blk + k;
       uint32_t x = 0u;
       if (j < n) {
-        x = msg[static_cast<size_t>(j) * stride];
+        x = word(j);
       } else if (j == n) {
         x = 0x80000000u;
       } else if (j == total - 2) {
@@ -178,15 +180,28 @@ __device__ __forceinline__ void sha256_strided(const uint32_t* __restrict__ msg,
   }
 }
 
-// One level of a Merkle walk: the sibling digest's word k lies at
-// s[k * stride]; the low index bit puts it on the left (odd) or on the right
-// (even) of `cur`, which becomes the node hash.
-__device__ __forceinline__ void merkle_step(uint32_t cur[8], uint32_t idx,
-                                            const uint32_t* __restrict__ s,
-                                            size_t stride) {
-  uint32_t sib[8], l[8], r[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) sib[k] = s[static_cast<size_t>(k) * stride];
+// The message's word j lies at msg[j * stride] (a lane of a word-major
+// array).
+__device__ __forceinline__ void sha256_strided(const uint32_t* __restrict__ msg,
+                                               size_t stride, int n,
+                                               uint32_t st[8]) {
+  sha256_message([&](int j) { return msg[static_cast<size_t>(j) * stride]; }, n,
+                 st);
+}
+
+// The message's word j is the low half of msg[j] (a row of a lane-major
+// int64 array, whose elements hold words in [0, 2^32)).
+__device__ __forceinline__ void sha256_lanes(const uint64_t* msg, int n,
+                                             uint32_t st[8]) {
+  sha256_message([&](int j) { return static_cast<uint32_t>(msg[j]); }, n, st);
+}
+
+// One level of a Merkle walk: the low index bit puts the sibling digest on
+// the left (odd) or on the right (even) of `cur`, which becomes the node
+// hash.
+__device__ __forceinline__ void merkle_node(uint32_t cur[8], uint32_t idx,
+                                            const uint32_t sib[8]) {
+  uint32_t l[8], r[8];
   const bool odd = (idx & 1u) != 0u;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -194,6 +209,16 @@ __device__ __forceinline__ void merkle_step(uint32_t cur[8], uint32_t idx,
     r[k] = odd ? cur[k] : sib[k];
   }
   node_hash(l, r, cur);
+}
+
+// merkle_node with the sibling's word k at s[k * stride].
+__device__ __forceinline__ void merkle_step(uint32_t cur[8], uint32_t idx,
+                                            const uint32_t* __restrict__ s,
+                                            size_t stride) {
+  uint32_t sib[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sib[k] = s[static_cast<size_t>(k) * stride];
+  merkle_node(cur, idx, sib);
 }
 
 }  // namespace stpu

@@ -1,10 +1,14 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds).  The
-library lands in ``build/stark_symphony_tpu_torch/`` at the repository
-root, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is loaded as it is.
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a``, all at once in
+parallel processes, and links them into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds).  The library
+needs no link against libcuda: the one libcuda function it calls,
+``cuTensorMapEncodeTiled`` (K3's tensor map), it fetches at run time
+through the CUDA runtime's entry-point query.  The library lands in
+``build/stark_symphony_tpu_torch/`` at the repository root, named by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is loaded as it is.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -29,7 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "stark_symphony_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,9 +42,9 @@ _I = ctypes.c_int
 # csrc/fri.cu; the last two arguments of each are the device ordinal and the
 # CUDA stream.
 _SIGNATURES = {
-    "stpu_sha256_words": (_P, _P, _I, _I, _I, _P),
+    "stpu_sha256_words": (_P, _P, _I, _I, _I, _I, _P),
     "stpu_sha256_pair": (_P, _P, _P, _I, _I, _P),
-    "stpu_merkle_walk": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "stpu_merkle_walk": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
     "stpu_leafwalk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "stpu_fri_all_layers": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P),
@@ -91,23 +95,30 @@ class Kernels:
             setattr(self, name, fn)
 
 
+def _run_all(cmds) -> str:
+    """Run the commands all at once; raise with the output of the first
+    that fails.  Returns their output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def _compile(out: pathlib.Path) -> str:
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(dir=str(out.parent), suffix=".so")
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return res.stdout + res.stderr
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=str(out.parent)) as tmp:
+        objs, cmds = [], []
+        for cu in sorted(CSRC.glob("*.cu")):
+            objs.append(str(pathlib.Path(tmp) / (cu.stem + ".o")))
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(cu)])
+        log = _run_all(cmds)
+        lib = str(pathlib.Path(tmp) / out.name)
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
+    return log
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,9 +141,12 @@ def load() -> Kernels:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the launcher ``stpu_{name}`` for `device` on its current PyTorch
     stream; tensors in `args` are passed as their data pointers.  Raises if
-    the launch was refused."""
+    the launch was refused.  The stream is read as the raw handle PyTorch
+    keeps for the device: what ``torch.cuda.current_stream(device)
+    .cuda_stream`` gives, without building a Python Stream object on
+    every launch."""
     fn = getattr(load(), f"stpu_{name}")
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*ptrs, device.index, stream)
     if err != 0:

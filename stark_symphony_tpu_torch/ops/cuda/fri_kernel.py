@@ -7,10 +7,10 @@ Counterpart of the public functions of
 * K5 ``fri_all_layers`` replaces ``fri_all_layers_tiled``
 
 Both kernels are bound by 32-bit integer issue (see ``csrc/fri.cu``).
-Unlike the wrappers of ``sha256_kernel.py`` these do no relayout: they take
-the int32 word-major ``(W, lanes)`` arrays that a tiled batch
-(``models/stwo/tiled.py``) holds, lane = b * Q + q, and per-proof roots and
-alphas ``(B, ...)`` that the kernels read at b = lane // Q.  Each wrapper
+The wrappers do no relayout: they take the int32 word-major ``(W, lanes)``
+arrays that a tiled batch (``models/stwo/tiled.py``) holds, lane =
+b * Q + q, and per-proof roots and alphas ``(B, ...)`` that the kernels
+read at b = lane // Q.  Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, and launches on ``torch.cuda.current_stream()``.
 ``launches`` counts the launches of each kernel; nothing else changes it.

@@ -10,15 +10,22 @@ Counterpart of the public wrappers of
 
 The kernels are bound by 32-bit integer issue, not by bytes: a compression
 reads about 64 B and writes 32 B against some 1,300 integer operations.
-They run one lane per thread, and each wrapper lays its ``(..., W)``
-trailing input out word-major ``(W, lanes)`` on the device, so a warp's 32
-threads read 128 consecutive bytes per word.
+They run one lane per thread.  Each wrapper takes int64 word tensors on a
+CUDA device (``ops/u32.py``), checks device and dtype, allocates its
+output with ``torch.empty``, and launches once on
+``torch.cuda.current_stream()``:
 
-Each wrapper takes int64 word tensors on a CUDA device (``ops/u32.py``),
-checks device, dtype and shape, passes int32 bit patterns to the kernel,
-allocates its output with ``torch.empty``, and launches on
-``torch.cuda.current_stream()``.  ``launches`` counts the launches of each
-kernel; nothing else changes it.
+* K1 and K3 read the caller's int64 words in place, lane-major (K1 the
+  ``(..., n)`` messages, K3 the ``(..., 8)`` leaves, ``(...,)`` indices and
+  ``(..., D, 8)`` siblings) and write the int64 ``(..., 8)`` result.  An
+  operand that is broadcast, not contiguous or not 16-byte aligned is
+  first made so (a copy); the verifier's operands never are.  K3's
+  per-path depths go to the card once per distinct array and are read at
+  ``lane % period``.
+* K2 takes word-major ``(8, lanes)`` int32 bit patterns, so its wrapper
+  lays its operands out so and back.
+
+``launches`` counts the launches of each kernel; nothing else changes it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,15 @@ from ..u32 import WORD, from_i32, to_i32
 from . import build
 
 launches = {"sha256_words": 0, "sha256_pair": 0, "merkle_walk": 0}
+
+# K1 and K3 block sizes: blocks of 32 lanes below SMALL_LANES lanes, so a
+# 4,096-lane call spreads over 128 SMs, and of 128 lanes above it (two
+# blocks an SM and more).  132 SMs x 256 lanes.  K3 with per-path depths
+# always takes blocks of 32 (walk_threads).
+SMALL_LANES = 132 * 256
+# Shared memory a K1 block may take (csrc/sha256.cu kMaxSmem): its lanes'
+# messages, at least 8 words each, and one 8-byte barrier.
+MAX_SMEM = 232448
 
 
 def reset_launches() -> None:
@@ -48,6 +64,35 @@ def _check(x: torch.Tensor, what: str, device=None) -> None:
         raise TypeError(f"{what}: expected int64 words, got {x.dtype}")
 
 
+def lane_threads(lanes: int, n: int = 8) -> int:
+    """The block size of K1 (n-word messages) or K3 (n = 8) for `lanes`
+    lanes: 32 or 128 threads, halved while a K1 block's messages would not
+    fit in shared memory."""
+    threads = 32 if lanes < SMALL_LANES else 128
+    while threads > 32 and threads * max(n, 8) * 8 + 8 > MAX_SMEM:
+        threads //= 2
+    if threads * max(n, 8) * 8 + 8 > MAX_SMEM:
+        raise ValueError(f"sha256_words: {n}-word messages do not fit a block's "
+                         "shared memory")
+    return threads
+
+
+def walk_threads(lanes: int, depths) -> int:
+    """K3's block size: 32 threads where the paths have depths of their own,
+    since a block walks to the depth of its deepest lane and small blocks
+    idle least (the FRI walk: 0.81 ms a call in blocks of 32, 0.90 ms in
+    blocks of 128; PERF.md), else as K1's."""
+    return 32 if depths is not None else lane_threads(lanes)
+
+
+def _lane_major(x: torch.Tensor, shape) -> torch.Tensor:
+    """`x` itself if it is a contiguous, 16-byte-aligned tensor of `shape`,
+    else a contiguous copy of it broadcast to `shape`."""
+    if tuple(x.shape) == tuple(shape) and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.expand(shape).clone(memory_format=torch.contiguous_format)
+
+
 def _word_major(x: torch.Tensor, w: int, lanes: int) -> torch.Tensor:
     """(..., w) int64 words -> contiguous (w, lanes) int32 bit patterns."""
     return to_i32(x.reshape(lanes, w)).t().contiguous()
@@ -56,6 +101,36 @@ def _word_major(x: torch.Tensor, w: int, lanes: int) -> torch.Tensor:
 def _from_word_major(out: torch.Tensor, bshape) -> torch.Tensor:
     """(8, lanes) int32 -> (*bshape, 8) int64 words."""
     return from_i32(out.t()).reshape(tuple(bshape) + (out.shape[0],))
+
+
+_device_depths = {}  # (device, shape, bytes) -> int32 tensor on the device
+
+
+def _periodic_depths(depths, bshape, device):
+    """(int32 depths on `device`, period): lane i of the flattened batch
+    `bshape` has depth depths[i % period].  A depth array whose shape is a
+    trailing part of `bshape` (after leading 1s) keeps its own size as the
+    period; any other is broadcast to the whole batch.  Host arrays are
+    copied to the card once per distinct array."""
+    if not isinstance(depths, torch.Tensor):
+        depths = torch.from_numpy(np.asarray(depths, np.int64))
+    shape = tuple(depths.shape)
+    while shape and shape[0] == 1:
+        shape = shape[1:]
+    if len(shape) <= len(bshape) and shape == bshape[len(bshape) - len(shape):]:
+        depths = depths.reshape(shape)
+    else:
+        depths, shape = depths.expand(bshape), bshape
+    period = max(1, math.prod(shape))
+    if depths.device == device:
+        return depths.to(torch.int32).contiguous().reshape(-1), period
+    host = np.ascontiguousarray(depths.cpu().numpy().astype(np.int32).reshape(-1))
+    key = (device, period, host.tobytes())
+    if key not in _device_depths:
+        if len(_device_depths) >= 64:
+            _device_depths.clear()
+        _device_depths[key] = torch.from_numpy(host).to(device)
+    return _device_depths[key], period
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -70,13 +145,14 @@ def sha256_words(words: torch.Tensor) -> torch.Tensor:
     if words.dim() < 1 or words.shape[-1] < 1:
         raise ValueError("sha256_words: need a trailing word axis of length >= 1")
     n = words.shape[-1]
-    bshape = words.shape[:-1]
+    bshape = tuple(words.shape[:-1])
     lanes = math.prod(bshape)
-    out = torch.empty((8, lanes), dtype=torch.int32, device=words.device)
+    out = torch.empty(bshape + (8,), dtype=WORD, device=words.device)
     if lanes:
-        msg = _word_major(words, n, lanes)
-        _launch("sha256_words", words.device, msg, out, n, lanes)
-    return _from_word_major(out, bshape)
+        msg = _lane_major(words, bshape + (n,))
+        _launch("sha256_words", words.device, msg, out, n, lanes,
+                lane_threads(lanes, n))
+    return out
 
 
 def sha256_pair(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -112,20 +188,14 @@ def merkle_compute_root(leaf_digest: torch.Tensor, index: torch.Tensor,
         raise ValueError("merkle: digests need a trailing axis of 8 words")
     dev = leaf_digest.device
     D = siblings.shape[-2]
-    bshape = torch.broadcast_shapes(leaf_digest.shape[:-1], index.shape,
-                                    siblings.shape[:-2])
+    bshape = tuple(torch.broadcast_shapes(leaf_digest.shape[:-1], index.shape,
+                                          siblings.shape[:-2]))
     lanes = math.prod(bshape)
-    if depths is None:
-        dep = torch.full((lanes,), D, dtype=torch.int32, device=dev)
-    else:
-        if not isinstance(depths, torch.Tensor):
-            depths = torch.from_numpy(np.asarray(depths, np.int64))
-        dep = depths.to(device=dev, dtype=torch.int32)
-        dep = dep.expand(bshape).reshape(lanes).contiguous()
-    out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
+    out = torch.empty(bshape + (8,), dtype=WORD, device=dev)
     if lanes:
-        leaf = _word_major(leaf_digest.expand(bshape + (8,)), 8, lanes)
-        idx = to_i32(index.expand(bshape).reshape(lanes)).contiguous()
-        sibs = _word_major(siblings.expand(bshape + (D, 8)), D * 8, lanes)
-        _launch("merkle_walk", dev, leaf, idx, dep, sibs, out, D, lanes)
-    return _from_word_major(out, bshape)
+        dep, period = (None, 0) if depths is None else _periodic_depths(depths, bshape, dev)
+        _launch("merkle_walk", dev, _lane_major(leaf_digest, bshape + (8,)),
+                _lane_major(index, bshape), dep, period,
+                _lane_major(siblings, bshape + (D, 8)), out, D, lanes,
+                walk_threads(lanes, depths))
+    return out

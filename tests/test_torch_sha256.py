@@ -184,42 +184,83 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 
 
 def _emulated_launch(name, device, *args):
-    """What each CUDA kernel computes, lane by lane, on its word-major
-    (W, lanes) int32 buffers, written with the plain versions; it lets the
-    wrappers' layout code (relayout, broadcasting, per-lane depths) run on
-    the CPU."""
-    from stark_symphony_tpu_torch.ops.u32 import from_i32, to_i32
+    """What each CUDA kernel computes, lane by lane, written with the plain
+    versions, on the buffers its launcher takes: K1 and K3 read lane-major
+    int64 words in place and write (lanes, 8) int64 words; K2 takes
+    word-major (W, lanes) int32 bit patterns.  It lets the wrappers' layout
+    code (broadcasting, copies, per-lane depths) run on the CPU.  The last
+    launch's arguments are kept in `_emulated_launch.seen`."""
+    from stark_symphony_tpu_torch.ops.u32 import WORD, from_i32, to_i32
 
-    if name == "sha256_words":
-        msg, out, n, lanes = args
-        assert msg.shape == (n, lanes) and msg.is_contiguous()
-        res = TS.sha256_words_plain(from_i32(msg).t())
-    elif name == "sha256_pair":
+    _emulated_launch.seen = args
+    if name == "sha256_pair":
         left, right, out, lanes = args
         assert left.shape == right.shape == (8, lanes)
-        res = TS.sha256_pair_plain(from_i32(left).t(), from_i32(right).t())
+        assert out.shape == (8, lanes) and out.dtype == torch.int32
+        out.copy_(to_i32(TS.sha256_pair_plain(from_i32(left).t(),
+                                              from_i32(right).t()).t()))
     else:
-        leaf, idx, dep, sibs, out, depth, lanes = args
-        assert sibs.shape == (depth * 8, lanes) and dep.shape == idx.shape == (lanes,)
-        res = TM.compute_root_plain(
-            from_i32(leaf).t(), from_i32(idx),
-            from_i32(sibs).reshape(depth, 8, lanes).permute(2, 0, 1),
-            dep.to(torch.int64))
-    assert out.shape == (8, lanes) and out.dtype == torch.int32
-    out.copy_(to_i32(res.t()))
+        if name == "sha256_words":
+            msg, out, n, lanes, threads = args
+            ins = [(msg, lanes * n)]
+            assert threads == ck.lane_threads(lanes, n)
+            res = TS.sha256_words_plain(msg.reshape(lanes, n))
+        else:
+            leaf, idx, dep, period, sibs, out, depth, lanes, threads = args
+            ins = [(leaf, lanes * 8), (idx, lanes), (sibs, lanes * depth * 8)]
+            assert threads == (32 if dep is not None else ck.lane_threads(lanes))
+            lane_dep = None
+            if dep is not None:
+                assert dep.dtype == torch.int32 and dep.numel() == period >= 1
+                lane_dep = dep[torch.arange(lanes) % period].to(WORD)
+            res = TM.compute_root_plain(leaf.reshape(lanes, 8), idx.reshape(lanes),
+                                        sibs.reshape(lanes, depth, 8), lane_dep)
+        for x, numel in ins:
+            assert x.dtype == WORD and x.is_contiguous() and x.numel() == numel
+            assert x.data_ptr() % 16 == 0
+        assert out.dtype == WORD and out.is_contiguous() and out.numel() == lanes * 8
+        out.view(lanes, 8).copy_(res)
     ck.launches[name] += 1
 
 
-def test_kernel_wrappers_layout(monkeypatch):
-    """The wrappers' word-major relayout around a lane-wise kernel gives
-    the plain results, for batch shapes, broadcast operands and per-lane
-    depths broadcast over the batch axis (the padded FRI walk's lanes)."""
-    monkeypatch.setattr(ck, "_check", lambda *a: None)
+def test_lane_block_sizes():
+    """K1/K3 blocks: 32 threads at the transcript's 4,096 lanes (128
+    blocks), 128 at the leaves' 65,536; fewer where a K1 block's messages
+    would not fit in shared memory, and an error where none would; 32 for
+    K3 where paths have depths of their own."""
+    assert ck.lane_threads(4096, 9) == ck.lane_threads(4096, 88) == 32
+    assert ck.lane_threads(4096) == ck.lane_threads(ck.SMALL_LANES - 1) == 32
+    assert ck.lane_threads(ck.SMALL_LANES) == ck.lane_threads(589_824) == 128
+    assert ck.lane_threads(65_536, 16) == ck.lane_threads(65_536, 88) == 128
+    assert ck.lane_threads(65_536, 300) == 64
+    assert ck.lane_threads(65_536, 600) == 32
+    with pytest.raises(ValueError):
+        ck.lane_threads(4096, 1000)
+    assert ck.walk_threads(589_824, None) == 128
+    assert ck.walk_threads(589_824, np.arange(144)) == 32
+
+
+@pytest.fixture()
+def emulated(monkeypatch):
+    monkeypatch.setattr(ck, "_check", lambda *a, **k: None)
     monkeypatch.setattr(ck, "_launch", _emulated_launch)
+
+
+def test_kernel_wrappers_layout(emulated):
+    """Around an emulated launch, each wrapper gives the plain results for
+    batch shapes, the empty batch, broadcast operands and per-lane depths
+    (periodic over the batch, as the padded FRI walk gives them, or not);
+    K1 and K3 hand the kernel the caller's own storage when it is already
+    lane-major, as the verifier's operands are, and copy it otherwise."""
     msgs = from_numpy(_rand((2, 3, 9), seed=13))
-    np.testing.assert_array_equal(to_numpy(ck.sha256_words(msgs)),
-                                  to_numpy(TS.sha256_words_plain(msgs)))
+    got = ck.sha256_words(msgs)
+    assert _emulated_launch.seen[0].data_ptr() == msgs.data_ptr()
+    np.testing.assert_array_equal(to_numpy(got), to_numpy(TS.sha256_words_plain(msgs)))
     assert tuple(ck.sha256_words(msgs[:0]).shape) == (0, 3, 8)
+    strided = msgs[..., ::2]
+    np.testing.assert_array_equal(to_numpy(ck.sha256_words(strided)),
+                                  to_numpy(TS.sha256_words_plain(strided)))
+    assert _emulated_launch.seen[0].data_ptr() != strided.data_ptr()
     left, right = from_numpy(_rand((4, 5, 8), seed=14)), from_numpy(_rand((8,), seed=15))
     np.testing.assert_array_equal(to_numpy(ck.sha256_pair(left, right)),
                                   to_numpy(TS.sha256_pair_plain(left, right)))
@@ -227,12 +268,23 @@ def test_kernel_wrappers_layout(monkeypatch):
     leaf = from_numpy(_rand((b, n, 8), seed=16))
     idx = from_numpy(_rand((b, n), seed=17) % (1 << d))
     sibs = from_numpy(_rand((b, n, d, 8), seed=18))
-    depths = np.random.default_rng(19).integers(0, d + 1, n)
-    for deps in (None, depths):
+    rng = np.random.default_rng(19)
+    per_query = rng.integers(0, d + 1, n)  # period n, as the FRI walk's
+    for deps in (None, per_query, per_query[None], rng.integers(0, d + 1, (b, 1)),
+                 rng.integers(0, d + 1, (b, n)), 2, torch.from_numpy(per_query)):
+        got = ck.merkle_compute_root(leaf, idx, sibs, deps)
+        seen = _emulated_launch.seen
+        assert [seen[i].data_ptr() for i in (0, 1, 4)] == [
+            leaf.data_ptr(), idx.data_ptr(), sibs.data_ptr()]
         np.testing.assert_array_equal(
-            to_numpy(ck.merkle_compute_root(leaf, idx, sibs, deps)),
-            to_numpy(TM.compute_root_plain(leaf, idx, sibs, deps)))
-    # one sibling path shared by every lane
+            to_numpy(got), to_numpy(TM.compute_root_plain(leaf, idx, sibs, deps)))
+    assert _emulated_launch.seen[3] == n  # per_query: one period of n lanes
+    assert tuple(ck.merkle_compute_root(leaf[:0], idx[:0], sibs[:0], per_query).shape) \
+        == (0, n, 8)
+    # one sibling path shared by every lane; one leaf shared by the batch
     np.testing.assert_array_equal(
         to_numpy(ck.merkle_compute_root(leaf, idx, sibs[0, 0])),
         to_numpy(TM.compute_root_plain(leaf, idx, sibs[0, 0])))
+    np.testing.assert_array_equal(
+        to_numpy(ck.merkle_compute_root(leaf[0], idx, sibs, per_query)),
+        to_numpy(TM.compute_root_plain(leaf[0], idx, sibs, per_query)))

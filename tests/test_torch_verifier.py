@@ -25,9 +25,13 @@ from stark_symphony_tpu.models.stwo import verifier as JV
 from stark_symphony_tpu_torch.models.stwo import proof as TP
 from stark_symphony_tpu_torch.models.stwo import verifier as TV
 from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
+from stark_symphony_tpu_torch.ops import merkle as TM
+from stark_symphony_tpu_torch.ops import sha256 as TS
+from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
 from stark_symphony_tpu_torch.utils.proofcache import cached_stwo_proof
 from chip_smoke import PROD_TAMPERS, tamper_batch
 import test_pow_production
+from test_torch_sha256 import _emulated_launch
 from test_torch_sha256 import jit_jax_compress  # noqa: F401 (autouse)
 
 MASK_KEYS = (
@@ -84,6 +88,26 @@ def test_accept_bitmap(results, case):
     nonce_lane = 1 + [t[0] for t in PROD_TAMPERS].index("pow_nonce")
     others = np.delete(got[1:], nonce_lane - 1)
     assert not others.any()
+
+
+def test_verify_through_the_kernel_wrappers(results, monkeypatch):
+    """The standard verify with every SHA-256 and Merkle call dispatched as
+    on the card, to the K1-K3 wrappers around an emulated launch (the
+    layouts and block sizes the kernels get): on the own TESTING tamper
+    batch every mask and the accept bitmap equal JAX's."""
+    monkeypatch.setattr(TS, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(TM, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(ck, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(ck, "_launch", _emulated_launch)
+    before = dict(ck.launches)
+    batch = tamper_batch(cached_stwo_proof(TESTING), 1 + TESTING.n_inner_layers)
+    ok, masks = TV.verify(TP.to_torch(batch), TESTING)
+    assert all(ck.launches[k] > before[k] for k in before), ck.launches
+    jok, jmasks = results["own_reference"]["jax"]
+    assert list(masks) == list(jmasks)
+    for k in jmasks:
+        np.testing.assert_array_equal(masks[k].numpy(), jmasks[k], err_msg=k)
+    np.testing.assert_array_equal(ok.numpy(), jok)
 
 
 def test_tamper_classes_match_the_jax_suite():
