@@ -15,9 +15,10 @@ tiled fast path, kernels K1, K4 and K5), in phases:
       registers, shared memory and spills for each;
   (c) kernels: each kernel against its plain PyTorch version on the card, bit
       for bit, on seeded random words at ragged lane counts (words >= P and
-      >= 2^31 included; K1 and K3 at both of their block sizes, K3 with
-      per-lane and per-query depths and a broadcast sibling path; about half
-      the K4/K5 lanes carry valid paths), and a few lanes against hashlib;
+      >= 2^31 included; K1-K3 at both of their block sizes, K2 with a
+      broadcast and a misaligned operand, K3 with per-lane and per-query
+      depths and a broadcast sibling path; about half the K4/K5 lanes carry
+      valid paths), and a few lanes against hashlib;
   (d) standard path: 4,096 PRODUCTION proofs (the 256 committed fixtures, 16
       times each) must all be accepted; a 16-proof batch carrying the 15
       tamper classes in lanes 1-15 must reject exactly those lanes, with every
@@ -31,12 +32,13 @@ tiled fast path, kernels K1, K4 and K5), in phases:
   (f) at the shapes each path gives each kernel: kernel and plain version
       compared bit for bit again (K4/K5 on inputs where both ok values
       occur, as in (c)), then timed with CUDA events, beside each
-      path's proofs/s (median of 5 batches, each timed alone); for K1 and
-      K3, torch.profiler over one wrapper call must show one device
+      path's proofs/s (median of 5 batches, each timed alone); for every
+      kernel, torch.profiler over one wrapper call must show one device
       activity, the stpu:: kernel itself, and K3 is timed in blocks of 32
       and of 128 threads;
       torch.profiler over one batch of each path gives the device's busy
-      share and each kernel's own device time.
+      share and each kernel's own device time, with the launches it saw
+      beside those counted, and where it saw fewer, which ones it missed.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -59,7 +61,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PACKAGE = "stark_symphony_tpu_torch"
 N_PROOFS = 4096
 LANES = 4097  # not a multiple of any block size: the ragged edge runs
-BIG_LANES = 33_793  # K1/K3 take 128-lane blocks from 33,792 lanes: 264 and 1
+BIG_LANES = 33_793  # K1-K3 take 128-lane blocks from 33,792 lanes: 264 and 1
 
 # The 15 tamper classes of tests/test_pow_production.py (PROD_TAMPERS):
 # (field, mutation, index into a tuple field or None).  The port's CPU tests
@@ -97,22 +99,30 @@ def tamper_batch(proof, n_layers: int):
     return batch
 
 
-KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces)
-    "sha256_words": ("K1", "csrc/sha256.cu", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:221"),
-    "sha256_pair": ("K2", "csrc/sha256.cu", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:265"),
-    "merkle_walk": ("K3", "csrc/sha256.cu", "stark_symphony_tpu/ops/pallas/sha256_kernel.py:312"),
-    "leafwalk": ("K4", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:200"),
-    "fri_all_layers": ("K5", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:314"),
+KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces,
+    #                           its device function)
+    "sha256_words": ("K1", "csrc/sha256.cu",
+                     "stark_symphony_tpu/ops/pallas/sha256_kernel.py:221",
+                     "sha256_words_kernel"),
+    "sha256_pair": ("K2", "csrc/sha256.cu",
+                    "stark_symphony_tpu/ops/pallas/sha256_kernel.py:265",
+                    "sha256_pair_kernel"),
+    "merkle_walk": ("K3", "csrc/sha256.cu",
+                    "stark_symphony_tpu/ops/pallas/sha256_kernel.py:312",
+                    "merkle_walk_kernel"),
+    "leafwalk": ("K4", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:200",
+                 "leafwalk_kernel"),
+    "fri_all_layers": ("K5", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:314",
+                       "fri_kernel"),
 }
-# Each path's kernels: (launch counts expected on one batch, the device
-# functions its profile must show).  A count of None means "more than 0".
+# Each path's launch counts expected on one batch; a count of None means
+# "more than 0".  Its profile must show the device function of every
+# kernel it launches.
 PATHS = {
-    "standard": ({"sha256_words": None, "sha256_pair": None, "merkle_walk": None,
-                  "leafwalk": 0, "fri_all_layers": 0},
-                 ("sha256_words_kernel", "sha256_pair_kernel", "merkle_walk_kernel")),
-    "tiled": ({"sha256_words": None, "sha256_pair": 0, "merkle_walk": 0,
-               "leafwalk": 2, "fri_all_layers": 1},
-              ("sha256_words_kernel", "leafwalk_kernel", "fri_kernel")),
+    "standard": {"sha256_words": None, "sha256_pair": None, "merkle_walk": None,
+                 "leafwalk": 0, "fri_all_layers": 0},
+    "tiled": {"sha256_words": None, "sha256_pair": 0, "merkle_walk": 0,
+              "leafwalk": 2, "fri_all_layers": 1},
 }
 
 # The bound of a kernel call: the larger of bytes / memory rate and integer
@@ -316,7 +326,7 @@ def launch_counts() -> dict:
 
 def check_counts(path: str, counts: dict) -> None:
     """(e): the kernels launched in one batch of `path` are its own."""
-    for name, want in PATHS[path][0].items():
+    for name, want in PATHS[path].items():
         n = counts[name]
         if want is None:
             check(n > 0, f"{path} path: kernel {name} was not launched")
@@ -384,7 +394,7 @@ def phase_kernels(rng):
 
     err = {name: 0 for name in KERNELS}
     check(ck.lane_threads(LANES) == 32 and ck.lane_threads(BIG_LANES) == 128,
-          "K1/K3 block sizes at LANES and BIG_LANES are not 32 and 128")
+          "K1-K3 block sizes at LANES and BIG_LANES are not 32 and 128")
 
     def compare(name, got, want, what):
         diff = int((got - want).abs().max().item()) if got.numel() else 0
@@ -407,16 +417,32 @@ def phase_kernels(rng):
     log(f"K1 sha256_words: bit-equal to plain and hashlib, n in 4,9,10,12,16,88 at "
         f"{LANES} lanes and 9,88 at {BIG_LANES}")
 
-    left = rng.integers(0, 1 << 32, (LANES, 8), dtype=np.uint32)
-    right = rng.integers(0, 1 << 32, (LANES, 8), dtype=np.uint32)
-    lt, rt = from_numpy(left, "cuda"), from_numpy(right, "cuda")
-    got = ck.sha256_pair(lt, rt)
-    compare("sha256_pair", got, sha256.sha256_pair_plain(lt, rt), "node")
+    # K2 in blocks of 32 (LANES) and of 128 (BIG_LANES), both ragged; then
+    # one digest broadcast to every lane, against a left operand that lies
+    # 8 bytes off a 16-byte boundary (both copied by the wrapper)
+    for lanes in (LANES, BIG_LANES):
+        left, right = _words(rng, lanes, 8), _words(rng, lanes, 8)
+        lt, rt = from_numpy(left, "cuda"), from_numpy(right, "cuda")
+        got = ck.sha256_pair(lt, rt)
+        compare("sha256_pair", got, sha256.sha256_pair_plain(lt, rt), f"{lanes} lanes")
+        host = to_numpy(got)
+        for lane in (0, 1, lanes // 2, lanes - 1):
+            check(list(host[lane]) == _hashlib_words(np.concatenate([left[lane], right[lane]])),
+                  f"sha256_pair {lanes} lanes, lane {lane} != hashlib")
+    left = _words(rng, LANES * 8 + 1)
+    lt = from_numpy(left, "cuda")[1:].view(LANES, 8)
+    check(lt.data_ptr() % 16 == 8, "sha256_pair: the misaligned operand is aligned")
+    one = right[0]
+    got = ck.sha256_pair(lt, from_numpy(one, "cuda"))
+    compare("sha256_pair", got, sha256.sha256_pair_plain(lt, from_numpy(one, "cuda")),
+            "misaligned left, broadcast right")
     host = to_numpy(got)
     for lane in (0, 1, LANES // 2, LANES - 1):
-        check(list(host[lane]) == _hashlib_words(np.concatenate([left[lane], right[lane]])),
-              f"sha256_pair lane {lane} != hashlib")
-    log(f"K2 sha256_pair: bit-equal to plain and hashlib, {LANES} lanes")
+        check(list(host[lane]) == _hashlib_words(np.concatenate([left[1:].reshape(LANES, 8)[lane],
+                                                                 one])),
+              f"sha256_pair misaligned/broadcast lane {lane} != hashlib")
+    log(f"K2 sha256_pair: bit-equal to plain and hashlib at {LANES} and {BIG_LANES} "
+        f"lanes, and at {LANES} with a misaligned left and a broadcast right operand")
 
     # (batch shape, depth, per-path depths, sibling path shared by all
     # lanes): full depth; per-lane depths 0..D; depths per query, periodic
@@ -614,10 +640,10 @@ def phase_timings(rng, err):
     give it at B = 4,096 (Q = 16, 9 FRI layers): compared bit for bit
     (largest difference into `err`; K4/K5's even proofs carry valid paths,
     so both ok values must occur), then timed; K1-K3 through their
-    wrappers on int64 words (K2's relayout included), K4-K5 on the tiled
-    batch's int32 arrays; K1 and K3 must launch one kernel a call and
-    nothing else (``one_kernel_each``).  Returns rows (name, what, kernel ms,
-    plain ms, bound ms, bound by, compressions)."""
+    wrappers on int64 words, K4-K5 on the tiled batch's int32 arrays; each
+    wrapper must launch one kernel a call and nothing else
+    (``one_kernel_each``).  Returns rows (name, what, kernel ms, plain ms,
+    bound ms, bound by, compressions, device ms a call)."""
     import numpy as np
     import torch
 
@@ -665,7 +691,7 @@ def phase_timings(rng, err):
              "merkle_walk": merkle.compute_root_plain,
              "leafwalk": fri.leafwalk_plain,
              "fri_all_layers": fri.fri_all_layers_plain}
-    rows, single = [], []  # single: the K1/K3 calls for one_kernel_each
+    rows, calls = [], []  # calls: one wrapper call a case, for one_kernel_each
     for name, what, args in cases:
         kargs = i32(args) if name in ("leafwalk", "fri_all_layers") else args
         outs = kern[name](*kargs)
@@ -684,26 +710,25 @@ def phase_timings(rng, err):
         b_ms, b_by, compr = bound(name, kargs, outs)
         k_ms = cuda_ms(lambda: kern[name](*kargs), 20)
         p_ms = cuda_ms(lambda: plain[name](*args), 2)
-        if name in ("sha256_words", "merkle_walk"):
-            single.append((name, what, lambda f=kern[name], a=kargs: f(*a)))
-        rows.append((name, what, k_ms, p_ms, b_ms, b_by, compr))
+        calls.append((name, lambda f=kern[name], a=kargs: f(*a)))
+        rows.append([name, what, k_ms, p_ms, b_ms, b_by, compr])
         log(f"time {name} [{what}]: bit-equal; kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.3f} ms ({p_ms / k_ms:.1f}x); bound {b_ms:.4f} ms by {b_by}; "
             f"{compr} compressions, {compr / (k_ms / 1e3) / 1e9:.2f} G/s")
-    dev_ms = one_kernel_each([(name, fn) for name, _, fn in single])
-    for (name, what, _), ms in zip(single, dev_ms):
-        log(f"profile {name} [{what}]: one launch a call, {ms:.4f} ms on the device")
+    for row, ms in zip(rows, one_kernel_each(calls)):
+        row.append(ms)
+        log(f"profile {row[0]} [{row[1]}]: one launch a call, {ms:.4f} ms on the device")
     # K3's block size at the main path's shapes: the wrapper's choice
     # (ck.walk_threads) against the other one
     rule = ck.walk_threads
     try:
-        for name, what, fn in single:
+        for (name, fn), row in zip(calls, rows):
             if name == "merkle_walk":
                 times = []
                 for threads in (32, 128):
                     ck.walk_threads = lambda lanes, depths, t=threads: t
                     times.append(f"{threads} threads {cuda_ms(fn, 20):.4f} ms")
-                log(f"K3 block size [{what}]: {', '.join(times)} a call")
+                log(f"K3 block size [{row[1]}]: {', '.join(times)} a call")
     finally:
         ck.walk_threads = rule
     return rows
@@ -750,20 +775,81 @@ def one_kernel_each(calls) -> list:
     dev = _device_events(_profiled(run_all, lambda p: len(_device_events(p)) >= len(calls)))
     seen = [e.name for e in dev]
     check(len(dev) == len(calls) and all(
-        f"stpu::{name}_kernel(" in e.name for (name, _), e in zip(calls, dev)),
-        f"{len(calls)} K1/K3 calls ran {seen} on the device, want one stpu:: "
+        f"stpu::{KERNELS[name][3]}(" in e.name for (name, _), e in zip(calls, dev)),
+        f"{len(calls)} wrapper calls ran {seen} on the device, want one stpu:: "
         "kernel a call")
     return [e.time_range.elapsed_us() / 1e3 for e in dev]
 
 
-def phase_profile(path, fn, batch, slice_ms, counts):
+def _launch_shape(name, args):
+    """(blocks, dynamic shared-memory bytes) of one launch of kernel `name`
+    made with the launcher arguments `args`, as its launcher in csrc/
+    computes them: what the profiler's trace shows of each launch."""
+    if name == "sha256_words":
+        _, _, n, lanes, threads = args
+        return -(-lanes // threads), threads * max(n, 8) * 8 + 8
+    if name == "sha256_pair":
+        lanes, threads = args[3], args[4]
+        return -(-lanes // threads), 512 + threads * 128 + 8
+    if name == "merkle_walk":
+        lanes, threads = args[7], args[8]
+        return -(-lanes // threads), threads * 200 + 32
+    return -(-args[-1] // 256), 0  # K4, K5: blocks of 256, lanes last
+
+
+def _missed(made, seen) -> list:
+    """Indices into `made` (launch shapes, in launch order) of the launches
+    that `seen` (the shapes the profiler saw, in start order) lacks, walked
+    greedily: of equal neighbours, the first is named."""
+    missed, j = [], 0
+    for i, shape in enumerate(made):
+        if j < len(seen) and seen[j] == shape:
+            j += 1
+        else:
+            missed.append(i)
+    return missed
+
+
+def _locate_missed(path, prof, record, short) -> None:
+    """For each device function in `short`, which the profiler saw fewer
+    times than it was launched, log which of its launches the trace lacks,
+    matched by grid and shared memory, and the profile's first device
+    activities."""
+    trace = ROOT / "build" / f"trace_{path}.json"
+    try:
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    except (OSError, ValueError, KeyError) as exc:
+        log(f"profile {path}: trace not read ({exc!r}); missed launches not located")
+        return
+    finally:
+        trace.unlink(missing_ok=True)
+    dev = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    log(f"profile {path}: the trace's first device activities: "
+        f"{[e['name'][:40] for e in dev[:3]]}")
+    for name, fn_name in short:
+        made = [shape for n, shape in record if n == name]
+        seen = [(e["args"]["grid"][0], e["args"].get("shared memory"))
+                for e in dev if f"stpu::{fn_name}(" in e["name"]]
+        if seen and seen[0][1] is None:  # no shared memory in the trace
+            made = [(blocks, None) for blocks, _ in made]
+        for i in _missed(made, seen):
+            where = "the first of the batch" if i == 0 else "inside the batch"
+            log(f"profile {path}: {fn_name}: launch {i + 1} of {len(made)} "
+                f"(blocks, shared bytes {made[i]}) not in the trace: {where}")
+
+
+def phase_profile(path, fn, batch, slice_ms):
     """(f): torch.profiler over one batch of `path` at B = 4,096: the
     device-time table, the device's busy share of the unprofiled batch
     time, and the path's kernels' own device time, with the launches the
-    profiler saw beside those counted in (e)."""
+    profiler saw beside those made in the profiled batch; for a kernel it
+    saw fewer times, which launches it missed."""
     from torch.autograd import DeviceType
 
-    want = PATHS[path][1]
+    from stark_symphony_tpu_torch.ops.cuda import build
+
+    want = [KERNELS[name][3] for name, n in PATHS[path].items() if n != 0]
 
     def ours(events):
         return [e for e in events if e.device_type == DeviceType.CUDA and "stpu" in e.key]
@@ -772,7 +858,23 @@ def phase_profile(path, fn, batch, slice_ms, counts):
         keys = [e.key for e in ours(prof.key_averages())]
         return all(any(f"stpu::{w}(" in k for k in keys) for w in want)
 
-    events = _profiled(lambda: fn(batch), complete).key_averages()
+    record = []  # (kernel name, launch shape) of every launch, in order
+    launch = build.launch
+
+    def recording(name, device, *args):
+        record.append((name, _launch_shape(name, args)))
+        launch(name, device, *args)
+
+    def run():
+        record.clear()
+        fn(batch)
+
+    build.launch = recording
+    try:
+        prof = _profiled(run, complete)
+    finally:
+        build.launch = launch
+    events = prof.key_averages()
     log(events.table(sort_by="self_cuda_time_total", row_limit=15))
     # device-side rows only: an operator's row repeats its kernels' time
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -781,11 +883,19 @@ def phase_profile(path, fn, batch, slice_ms, counts):
         f"{sum(e.count for e in kernels)} launches, "
         f"{100 * busy_ms / slice_ms:.1f} % of the {slice_ms:.1f} ms batch")
     mine = ours(events)
-    for e in mine:
-        name = e.key.split("(")[0].removeprefix("stpu::").removesuffix("_kernel")
-        counted = counts.get("fri_all_layers" if name == "fri" else name)
-        log(f"profile {path}: {e.key}: {e.self_device_time_total / 1e3:.3f} ms "
-            f"device in {e.count} launches (counted: {counted})")
+    short = []
+    for name, (_, _, _, fn_name) in KERNELS.items():
+        made = sum(1 for n, _ in record if n == name)
+        seen = [e for e in mine if f"stpu::{fn_name}(" in e.key]
+        profiled = sum(e.count for e in seen)
+        if made or profiled:
+            dev_ms = sum(e.self_device_time_total for e in seen) / 1e3
+            log(f"profile {path}: stpu::{fn_name}: {dev_ms:.3f} ms device in "
+                f"{profiled} launches (counted: {made})")
+        if profiled < made:
+            short.append((name, fn_name))
+    if short:
+        _locate_missed(path, prof, record, short)
     seen = [w for w in want if any(f"stpu::{w}(" in e.key for e in mine)]
     check(busy_ms > 0 and len(seen) == len(want) == len(mine),
           f"profile {path} saw {[e.key for e in mine]}, want {list(want)}")
@@ -811,16 +921,16 @@ def main() -> int:
     counts["standard"], std_ms, fn, batch, tamper_cpu = phase_slice(proofs)  # (d), (e)
     counts["tiled"], tiled_ms, fn_t, tb = phase_tiled(proofs, tamper_cpu)  # (d'), (e)
     rows = phase_timings(rng, errs)  # (f)
-    phase_profile("standard", fn, batch, std_ms, counts["standard"])
-    phase_profile("tiled", fn_t, tb, tiled_ms, counts["tiled"])
+    phase_profile("standard", fn, batch, std_ms)
+    phase_profile("tiled", fn_t, tb, tiled_ms)
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:
         largest[name] = row
     kernels = []
-    for name, (_, source, replaces) in KERNELS.items():
-        _, k_ms, p_ms, b_ms, b_by, _ = largest[name]
-        path = next(p for p, (want, _) in PATHS.items() if want[name] != 0)
+    for name, (_, source, replaces, _) in KERNELS.items():
+        _, k_ms, p_ms, b_ms, b_by, _, _ = largest[name]
+        path = next(p for p, want in PATHS.items() if want[name] != 0)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/{source}", "replaces": replaces,

@@ -1,6 +1,7 @@
-// Hopper's asynchronous copies into shared memory, and the mbarriers that
-// report their completion (sm_90).  Used by the K1 and K3 kernels of
-// sha256.cu to stage their lane-major int64 inputs.
+// Hopper's asynchronous copies between device and shared memory, and the
+// mbarriers that report the completion of those into shared memory (sm_90).
+// Used by the K1, K2 and K3 kernels of sha256.cu to stage their lane-major
+// int64 inputs, and by K2 to store its result.
 //
 // A copy is issued by one thread: it arms the stage's mbarrier with the
 // bytes to expect (mbar_expect_tx), then issues the copy, which the copy
@@ -9,7 +10,10 @@
 // has completed k times is waited for with parity k & 1.
 //
 // The copies need 16-byte-aligned addresses and, for the 1-D bulk copy, a
-// size that is a multiple of 16 bytes; the callers hold to that.
+// size that is a multiple of 16 bytes; the callers hold to that.  A box
+// copied with a swizzle lands at a shared address aligned to the swizzle's
+// period (512 B for CU_TENSOR_MAP_SWIZZLE_64B), so that its pattern depends
+// on the row alone.
 #pragma once
 
 #include <cuda.h>
@@ -60,10 +64,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Orders this thread's earlier shared-memory accesses (generic proxy)
-// before the copies into shared memory (async proxy) that follow a
-// __syncthreads().  A buffer that threads have read is refilled by a copy
-// only after every reader has passed this fence and the barrier:
-// otherwise a read still queued may see the new data.
+// before the copies (async proxy) that follow a __syncthreads(), in both
+// directions:
+//   - a buffer that threads have read is refilled by a copy into shared
+//     memory only after every reader has passed this fence and the
+//     barrier: otherwise a read still queued may see the new data;
+//   - a buffer that threads have written is stored by a copy out of shared
+//     memory (tensor_s2g) only after every writer has passed this fence and
+//     the barrier: otherwise the copy may read the old data.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -89,6 +97,34 @@ __device__ __forceinline__ void tensor_g2s(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 2-D tensor-map store of the box at coordinates (c0 innermost, c1) from
+// shared memory to device memory, in the issuing thread's bulk group (see
+// fence_proxy_async for what must come before it).  Rows of the box that
+// fall outside the tensor are not written.  The copy reads the shared
+// memory after the instruction returns: the issuing thread commits the
+// group and waits for it (bulk_commit, bulk_wait_read) before the buffer
+// is written again or the block exits.
+__device__ __forceinline__ void tensor_s2g(const CUtensorMap* map, int c0, int c1,
+                                           const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2}], [%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+
+// Close the issuing thread's bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until every committed store of this thread has read its shared
+// memory (its writes to device memory may still be in flight; they are
+// visible to the kernels that follow).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 }  // namespace stpu

@@ -4,8 +4,8 @@
 parallel processes, and links them into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  The library
 needs no link against libcuda: the one libcuda function it calls,
-``cuTensorMapEncodeTiled`` (K3's tensor map), it fetches at run time
-through the CUDA runtime's entry-point query.  The library lands in
+``cuTensorMapEncodeTiled`` (K2's and K3's tensor maps), it fetches at run
+time through the CUDA runtime's entry-point query.  The library lands in
 ``build/stark_symphony_tpu_torch/`` at the repository root, named by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.
@@ -43,7 +43,7 @@ _I = ctypes.c_int
 # CUDA stream.
 _SIGNATURES = {
     "stpu_sha256_words": (_P, _P, _I, _I, _I, _I, _P),
-    "stpu_sha256_pair": (_P, _P, _P, _I, _I, _P),
+    "stpu_sha256_pair": (_P, _P, _P, _I, _I, _I, _P),
     "stpu_merkle_walk": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
     "stpu_leafwalk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "stpu_fri_all_layers": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -13,17 +13,15 @@ reads about 64 B and writes 32 B against some 1,300 integer operations.
 They run one lane per thread.  Each wrapper takes int64 word tensors on a
 CUDA device (``ops/u32.py``), checks device and dtype, allocates its
 output with ``torch.empty``, and launches once on
-``torch.cuda.current_stream()``:
+``torch.cuda.current_stream()``.
 
-* K1 and K3 read the caller's int64 words in place, lane-major (K1 the
-  ``(..., n)`` messages, K3 the ``(..., 8)`` leaves, ``(...,)`` indices and
-  ``(..., D, 8)`` siblings) and write the int64 ``(..., 8)`` result.  An
-  operand that is broadcast, not contiguous or not 16-byte aligned is
-  first made so (a copy); the verifier's operands never are.  K3's
-  per-path depths go to the card once per distinct array and are read at
-  ``lane % period``.
-* K2 takes word-major ``(8, lanes)`` int32 bit patterns, so its wrapper
-  lays its operands out so and back.
+All three read the caller's int64 words in place, lane-major (K1 the
+``(..., n)`` messages, K2 the ``(..., 8)`` left and right digests, K3 the
+``(..., 8)`` leaves, ``(...,)`` indices and ``(..., D, 8)`` siblings) and
+write the int64 ``(..., 8)`` result.  An operand that is broadcast, not
+contiguous or not 16-byte aligned is first made so (a copy); the
+verifier's operands never are.  K3's per-path depths go to the card once
+per distinct array and are read at ``lane % period``.
 
 ``launches`` counts the launches of each kernel; nothing else changes it.
 """
@@ -35,12 +33,12 @@ import math
 import numpy as np
 import torch
 
-from ..u32 import WORD, from_i32, to_i32
+from ..u32 import WORD
 from . import build
 
 launches = {"sha256_words": 0, "sha256_pair": 0, "merkle_walk": 0}
 
-# K1 and K3 block sizes: blocks of 32 lanes below SMALL_LANES lanes, so a
+# K1-K3 block sizes: blocks of 32 lanes below SMALL_LANES lanes, so a
 # 4,096-lane call spreads over 128 SMs, and of 128 lanes above it (two
 # blocks an SM and more).  132 SMs x 256 lanes.  K3 with per-path depths
 # always takes blocks of 32 (walk_threads).
@@ -65,9 +63,9 @@ def _check(x: torch.Tensor, what: str, device=None) -> None:
 
 
 def lane_threads(lanes: int, n: int = 8) -> int:
-    """The block size of K1 (n-word messages) or K3 (n = 8) for `lanes`
-    lanes: 32 or 128 threads, halved while a K1 block's messages would not
-    fit in shared memory."""
+    """The block size of K1 (n-word messages), K2 or K3 (n = 8) for
+    `lanes` lanes: 32 or 128 threads, halved while a K1 block's messages
+    would not fit in shared memory."""
     threads = 32 if lanes < SMALL_LANES else 128
     while threads > 32 and threads * max(n, 8) * 8 + 8 > MAX_SMEM:
         threads //= 2
@@ -91,16 +89,6 @@ def _lane_major(x: torch.Tensor, shape) -> torch.Tensor:
     if tuple(x.shape) == tuple(shape) and x.is_contiguous() and x.data_ptr() % 16 == 0:
         return x
     return x.expand(shape).clone(memory_format=torch.contiguous_format)
-
-
-def _word_major(x: torch.Tensor, w: int, lanes: int) -> torch.Tensor:
-    """(..., w) int64 words -> contiguous (w, lanes) int32 bit patterns."""
-    return to_i32(x.reshape(lanes, w)).t().contiguous()
-
-
-def _from_word_major(out: torch.Tensor, bshape) -> torch.Tensor:
-    """(8, lanes) int32 -> (*bshape, 8) int64 words."""
-    return from_i32(out.t()).reshape(tuple(bshape) + (out.shape[0],))
 
 
 _device_depths = {}  # (device, shape, bytes) -> int32 tensor on the device
@@ -159,17 +147,17 @@ def sha256_pair(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """K2: Merkle node hash sha256(left || right), (..., 8) x2 -> (..., 8)."""
     _check(left, "sha256_pair left")
     _check(right, "sha256_pair right", left.device)
-    left, right = torch.broadcast_tensors(left, right)
-    if left.shape[-1] != 8:
+    shape = tuple(left.shape)
+    if left.shape != right.shape:  # broadcast_shapes: more host time than K2 (PERF.md)
+        shape = tuple(torch.broadcast_shapes(left.shape, right.shape))
+    if not shape or shape[-1] != 8:
         raise ValueError("sha256_pair: digests need a trailing axis of 8 words")
-    bshape = left.shape[:-1]
-    lanes = math.prod(bshape)
-    out = torch.empty((8, lanes), dtype=torch.int32, device=left.device)
+    lanes = math.prod(shape[:-1])
+    out = torch.empty(shape, dtype=WORD, device=left.device)
     if lanes:
-        lw = _word_major(left, 8, lanes)
-        rw = _word_major(right, 8, lanes)
-        _launch("sha256_pair", left.device, lw, rw, out, lanes)
-    return _from_word_major(out, bshape)
+        _launch("sha256_pair", left.device, _lane_major(left, shape),
+                _lane_major(right, shape), out, lanes, lane_threads(lanes))
+    return out
 
 
 def merkle_compute_root(leaf_digest: torch.Tensor, index: torch.Tensor,

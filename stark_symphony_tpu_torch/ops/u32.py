@@ -7,9 +7,9 @@ Word convention (the whole port follows it):
   CPU, and ``int32 >> n`` sign-extends, so neither serves.  Every add,
   multiply and left shift is masked with ``0xFFFFFFFF`` right after it,
   which reproduces uint32 wrap-around bit for bit.
-* At a CUDA kernel's boundary: K1 ``sha256_words`` and K3 ``merkle_walk``
-  read these int64 words in place, lane-major, and use the low 32 bits of
-  each; K2 ``sha256_pair``, K4 and K5 take word-major ``int32`` bit
+* At a CUDA kernel's boundary: K1 ``sha256_words``, K2 ``sha256_pair``
+  and K3 ``merkle_walk`` read these int64 words in place, lane-major, and
+  use the low 32 bits of each; K4 and K5 take word-major ``int32`` bit
   patterns, which the device code reads as ``uint32_t``.
 * Conversions happen only at the edges: ``np.uint32`` <-> ``int64``
   (``from_numpy`` / ``to_numpy``) and ``int64`` <-> ``int32`` for the

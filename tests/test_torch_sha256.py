@@ -185,41 +185,39 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 
 def _emulated_launch(name, device, *args):
     """What each CUDA kernel computes, lane by lane, written with the plain
-    versions, on the buffers its launcher takes: K1 and K3 read lane-major
-    int64 words in place and write (lanes, 8) int64 words; K2 takes
-    word-major (W, lanes) int32 bit patterns.  It lets the wrappers' layout
-    code (broadcasting, copies, per-lane depths) run on the CPU.  The last
-    launch's arguments are kept in `_emulated_launch.seen`."""
-    from stark_symphony_tpu_torch.ops.u32 import WORD, from_i32, to_i32
+    versions, on the buffers its launcher takes: K1-K3 read lane-major
+    int64 words in place and write (lanes, 8) int64 words.  It lets the
+    wrappers' layout code (broadcasting, copies, per-lane depths) run on
+    the CPU.  The last launch's arguments are kept in
+    `_emulated_launch.seen`."""
+    from stark_symphony_tpu_torch.ops.u32 import WORD
 
     _emulated_launch.seen = args
-    if name == "sha256_pair":
-        left, right, out, lanes = args
-        assert left.shape == right.shape == (8, lanes)
-        assert out.shape == (8, lanes) and out.dtype == torch.int32
-        out.copy_(to_i32(TS.sha256_pair_plain(from_i32(left).t(),
-                                              from_i32(right).t()).t()))
+    if name == "sha256_words":
+        msg, out, n, lanes, threads = args
+        ins = [(msg, lanes * n)]
+        assert threads == ck.lane_threads(lanes, n)
+        res = TS.sha256_words_plain(msg.reshape(lanes, n))
+    elif name == "sha256_pair":
+        left, right, out, lanes, threads = args
+        ins = [(left, lanes * 8), (right, lanes * 8)]
+        assert threads == ck.lane_threads(lanes)
+        res = TS.sha256_pair_plain(left.reshape(lanes, 8), right.reshape(lanes, 8))
     else:
-        if name == "sha256_words":
-            msg, out, n, lanes, threads = args
-            ins = [(msg, lanes * n)]
-            assert threads == ck.lane_threads(lanes, n)
-            res = TS.sha256_words_plain(msg.reshape(lanes, n))
-        else:
-            leaf, idx, dep, period, sibs, out, depth, lanes, threads = args
-            ins = [(leaf, lanes * 8), (idx, lanes), (sibs, lanes * depth * 8)]
-            assert threads == (32 if dep is not None else ck.lane_threads(lanes))
-            lane_dep = None
-            if dep is not None:
-                assert dep.dtype == torch.int32 and dep.numel() == period >= 1
-                lane_dep = dep[torch.arange(lanes) % period].to(WORD)
-            res = TM.compute_root_plain(leaf.reshape(lanes, 8), idx.reshape(lanes),
-                                        sibs.reshape(lanes, depth, 8), lane_dep)
-        for x, numel in ins:
-            assert x.dtype == WORD and x.is_contiguous() and x.numel() == numel
-            assert x.data_ptr() % 16 == 0
-        assert out.dtype == WORD and out.is_contiguous() and out.numel() == lanes * 8
-        out.view(lanes, 8).copy_(res)
+        leaf, idx, dep, period, sibs, out, depth, lanes, threads = args
+        ins = [(leaf, lanes * 8), (idx, lanes), (sibs, lanes * depth * 8)]
+        assert threads == (32 if dep is not None else ck.lane_threads(lanes))
+        lane_dep = None
+        if dep is not None:
+            assert dep.dtype == torch.int32 and dep.numel() == period >= 1
+            lane_dep = dep[torch.arange(lanes) % period].to(WORD)
+        res = TM.compute_root_plain(leaf.reshape(lanes, 8), idx.reshape(lanes),
+                                    sibs.reshape(lanes, depth, 8), lane_dep)
+    for x, numel in ins:
+        assert x.dtype == WORD and x.is_contiguous() and x.numel() == numel
+        assert x.data_ptr() % 16 == 0
+    assert out.dtype == WORD and out.is_contiguous() and out.numel() == lanes * 8
+    out.view(lanes, 8).copy_(res)
     ck.launches[name] += 1
 
 
@@ -250,7 +248,7 @@ def test_kernel_wrappers_layout(emulated):
     """Around an emulated launch, each wrapper gives the plain results for
     batch shapes, the empty batch, broadcast operands and per-lane depths
     (periodic over the batch, as the padded FRI walk gives them, or not);
-    K1 and K3 hand the kernel the caller's own storage when it is already
+    K1-K3 hand the kernel the caller's own storage when it is already
     lane-major, as the verifier's operands are, and copy it otherwise."""
     msgs = from_numpy(_rand((2, 3, 9), seed=13))
     got = ck.sha256_words(msgs)
@@ -261,9 +259,23 @@ def test_kernel_wrappers_layout(emulated):
     np.testing.assert_array_equal(to_numpy(ck.sha256_words(strided)),
                                   to_numpy(TS.sha256_words_plain(strided)))
     assert _emulated_launch.seen[0].data_ptr() != strided.data_ptr()
-    left, right = from_numpy(_rand((4, 5, 8), seed=14)), from_numpy(_rand((8,), seed=15))
-    np.testing.assert_array_equal(to_numpy(ck.sha256_pair(left, right)),
-                                  to_numpy(TS.sha256_pair_plain(left, right)))
+    # K2: the caller's own storage when both operands are lane-major, else
+    # a copy of the one that is broadcast, strided or misaligned
+    left, right = from_numpy(_rand((4, 5, 8), seed=14)), from_numpy(_rand((4, 5, 8), seed=15))
+    wide = from_numpy(_rand((4, 5, 16), seed=20))
+    flat = from_numpy(_rand((4 * 5 * 8 + 1,), seed=21))
+    misaligned = flat[1:].view(4, 5, 8)
+    assert misaligned.data_ptr() % 16 == 8
+    for other, in_place in ((right, True), (right[0, 0], False), (wide[..., ::2], False),
+                            (misaligned, False)):
+        got = ck.sha256_pair(left, other)
+        seen = _emulated_launch.seen
+        assert seen[0].data_ptr() == left.data_ptr()
+        assert (seen[1].data_ptr() == other.data_ptr()) == in_place
+        np.testing.assert_array_equal(to_numpy(got),
+                                      to_numpy(TS.sha256_pair_plain(left, other)))
+    assert tuple(ck.sha256_pair(left[:0], right[:0]).shape) == (0, 5, 8)
+    assert tuple(ck.sha256_pair(left[:, :0], right[0, 0]).shape) == (4, 0, 8)
     b, n, d = 3, 10, 5
     leaf = from_numpy(_rand((b, n, 8), seed=16))
     idx = from_numpy(_rand((b, n), seed=17) % (1 << d))
@@ -288,3 +300,21 @@ def test_kernel_wrappers_layout(emulated):
     np.testing.assert_array_equal(
         to_numpy(ck.merkle_compute_root(leaf[0], idx, sibs, per_query)),
         to_numpy(TM.compute_root_plain(leaf[0], idx, sibs, per_query)))
+
+
+@pytest.mark.parametrize("lshape, rshape", [
+    ((1, 8), (1, 8)), ((33, 8), (33, 8)), ((3, 11, 8), (3, 11, 8)),
+    ((2, 3, 5, 8), (5, 8)), ((8,), (6, 8)),
+])
+def test_sha256_pair_wrapper_matches_jax(emulated, lshape, rshape):
+    """K2's wrapper around an emulated launch, at batch shapes and
+    broadcasts, equals the JAX package's sha256_pair (on the operands
+    broadcast) and hashlib."""
+    left, right = _rand(lshape, seed=len(lshape)), _rand(rshape, seed=40 + len(rshape))
+    got = to_numpy(ck.sha256_pair(from_numpy(left), from_numpy(right)))
+    l2, r2 = np.broadcast_arrays(left, right)  # JAX's lax path does not broadcast
+    want = np.asarray(JS.sha256_pair(jnp.asarray(l2), jnp.asarray(r2)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got.reshape(-1, 8)[-1],
+        _hashlib_words(np.concatenate([l2.reshape(-1, 8)[-1], r2.reshape(-1, 8)[-1]])))
