@@ -166,7 +166,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def kernel():
-        build.launch("sha256_pair", dev, left, right, outs["kernel"], LANES, THREADS)
+        build.launch("sha256_pair", dev, left, right, outs["kernel"], LANES, THREADS, 8, 8)
 
     def global_loads():
         err = yardstick(left.data_ptr(), right.data_ptr(), outs["yardstick"].data_ptr(),
@@ -202,7 +202,7 @@ def main() -> int:
     costs = {
         "K2 wrapper (ck.sha256_pair)": lambda: ck.sha256_pair(hl, hr),
         "K2 launcher alone (build.launch)": lambda: build.launch(
-            "sha256_pair", dev, hl, hr, hout, HOST_LANES, threads),
+            "sha256_pair", dev, hl, hr, hout, HOST_LANES, threads, 8, 8),
         "K1 launcher alone, n = 1": lambda: build.launch(
             "sha256_words", dev, msg, hout, 1, HOST_LANES, threads),
         "torch.broadcast_shapes of two (4096, 8)": lambda: torch.broadcast_shapes(

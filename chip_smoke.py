@@ -3,10 +3,14 @@
 
     python chip_smoke.py
 
-Drives the port's main path, the batched stwo verifier at the PRODUCTION
-config, through both entry points of ``stark_symphony_tpu_torch.entry``:
-``entry()`` (the standard path, kernels K1-K3) and ``entry_tiled()`` (the
-tiled fast path, kernels K1, K4 and K5), in phases:
+Drives the port's paths through the entry points of
+``stark_symphony_tpu_torch.entry``: the main path, the batched stwo
+verifier at the PRODUCTION config, through ``entry()`` (the standard path,
+kernels K1-K3) and ``entry_tiled()`` (the tiled fast path, kernels K1, K4
+and K5); then the stark101 family at the reference configuration, its
+prover through ``prove_stark101()`` (K1, K2) and its batched verifier
+through ``entry_stark101()`` (K1, K3).  Each path's launches are counted
+from 0 just before it runs and read just after.  In phases:
 
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
       name and power limit as nvidia-smi reports them;
@@ -18,7 +22,11 @@ tiled fast path, kernels K1, K4 and K5), in phases:
       >= 2^31 included; K1-K3 at both of their block sizes, K2 with a
       broadcast and a misaligned operand, K3 with per-lane and per-query
       depths and a broadcast sibling path; about half the K4/K5 lanes carry
-      valid paths), and a few lanes against hashlib;
+      valid paths), and a few lanes against hashlib; and the stark101
+      shapes: K1 on 1-word messages at 4,097 lanes and on 1 lane and on
+      unbatched 8-, 9- and 16-word messages, K2 on the even and odd rows of a
+      tree level (read in place) at 1, 2 and 4,097 lanes, K3 at depths
+      13..4 repeated with period 20 on 4,100 lanes;
   (d) standard path: 4,096 PRODUCTION proofs (the 256 committed fixtures, 16
       times each) must all be accepted; a 16-proof batch carrying the 15
       tamper classes in lanes 1-15 must reject exactly those lanes, with every
@@ -38,11 +46,22 @@ tiled fast path, kernels K1, K4 and K5), in phases:
       and of 128 threads;
       torch.profiler over one batch of each path gives the device's busy
       share and each kernel's own device time, with the launches it saw
-      beside those counted, and where it saw fewer, which ones it missed.
+      beside those counted, and where it saw fewer, which ones it missed;
+  (g) stark101: ``prove_stark101()`` on the card must give the golden
+      fixture word for word, field by field, and the CPU run's query
+      index; ``entry_stark101()`` must accept all 4,096 lanes; a batch of
+      lane 0 clean and the STARK101_TAMPERS classes in lanes 1-10 must
+      reject exactly those lanes, every mask equal to the port's CPU run;
+      the launches of one prove and of one verifier batch must equal
+      PATHS; K1-K3 at the stark101 shapes are compared and timed as in
+      (f); the verifications/s (median of 5 batches of 4,096, each timed
+      alone), the device's busy share of a profiled batch and the seconds
+      of one prove are printed.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
-each with its time, its plain version's time and its bound: the larger of
+each with its launches on the main path and on every path that runs it,
+its time, its plain version's time and its bound: the larger of
 the bytes its inputs and outputs move at the card's memory rate and the
 integer ALU instructions its SHA-256 compressions need at the card's
 issue rate for them (``bound()``).
@@ -85,6 +104,36 @@ PROD_TAMPERS = [
 ]
 
 
+# The stark101 tamper classes: test_stark101.py's five (evals + 1,
+# fri_betas ^ 1, cpa_evals ^ 1, last ^ 1, p_mt_root ^ 1), then one class for
+# each other field, a tuple field at one layer.  Same layout as PROD_TAMPERS.
+STARK101_TAMPERS = [
+    ("evals", lambda a: a + 1, None),
+    ("fri_betas", lambda a: a ^ 1, None),
+    ("cpa_evals", lambda a: a ^ 1, None),
+    ("last", lambda a: a ^ 1, None),
+    ("p_mt_root", lambda a: a ^ 1, None),
+    ("eval_sibs", lambda a: a ^ 1, None),
+    ("fri_roots", lambda a: a ^ 1, None),
+    ("cpb_evals", lambda a: a ^ 1, None),
+    ("cpa_sibs", lambda a: a ^ 1, 3),
+    ("cpb_sibs", lambda a: a ^ 2, 7),
+]
+
+
+def stark101_tamper_batch(proof):
+    """A batch of 1 + len(STARK101_TAMPERS) copies of a numpy stark101
+    proof: lane 0 clean, lane k tampered by the k-th class."""
+    from stark_symphony_tpu_torch.models.stark101 import proof as P101
+
+    batch = P101.replicate(proof, 1 + len(STARK101_TAMPERS))
+    fields = batch._asdict()
+    for lane, (field, mutate, idx) in enumerate(STARK101_TAMPERS, 1):
+        arr = fields[field] if idx is None else fields[field][idx]
+        arr[lane] = mutate(arr[lane])
+    return batch
+
+
 def tamper_batch(proof, n_layers: int):
     """A batch of 1 + 15 copies of a numpy proof: lane 0 clean, lane k
     tampered by the k-th class.  A tuple field's index is taken mod
@@ -115,14 +164,22 @@ KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces,
     "fri_all_layers": ("K5", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:314",
                        "fri_kernel"),
 }
-# Each path's launch counts expected on one batch; a count of None means
-# "more than 0".  Its profile must show the device function of every
-# kernel it launches.
+# Each path's launch counts expected on one batch (stark101_prove: one
+# proof); a count of None means "more than 0".  A verifier path's profile
+# must show the device function of every kernel it launches.  stark101: the
+# transcript's 29 K1 hashes (genesis, 14 draws, 10 root mixes, 4 mix_u32)
+# and the two leaf batches, the trace walk and the FRI walk.
+# stark101_prove: 11 leaf batches and 26 transcript hashes on K1, one K2
+# launch a tree level (13 + 13 + 12 + ... + 4 = 98).
 PATHS = {
     "standard": {"sha256_words": None, "sha256_pair": None, "merkle_walk": None,
                  "leafwalk": 0, "fri_all_layers": 0},
     "tiled": {"sha256_words": None, "sha256_pair": 0, "merkle_walk": 0,
               "leafwalk": 2, "fri_all_layers": 1},
+    "stark101": {"sha256_words": 31, "sha256_pair": 0, "merkle_walk": 2,
+                 "leafwalk": 0, "fri_all_layers": 0},
+    "stark101_prove": {"sha256_words": 37, "sha256_pair": 98, "merkle_walk": 0,
+                       "leafwalk": 0, "fri_all_layers": 0},
 }
 
 # The bound of a kernel call: the larger of bytes / memory rate and integer
@@ -479,6 +536,54 @@ def phase_kernels(rng):
         f"per-lane depths 0..12; per-query depths over {n_proofs} x {n_q}, with and "
         f"without a shared sibling path) and at {BIG_LANES} lanes")
 
+    # the stark101 shapes: K1 on 1-word messages (8-byte rows) at a ragged
+    # lane count and on 1 lane, and on the prover's unbatched transcript
+    # messages; K2 on the even and odd rows of a tree level, read in place;
+    # K3 at depths 13..4, two paths a layer, period 20
+    for shape in ((LANES, 1), (1, 1), (8,), (9,), (16,)):
+        msgs = _words(rng, *shape)
+        t = from_numpy(msgs, "cuda")
+        got = ck.sha256_words(t)
+        compare("sha256_words", got, sha256.sha256_words_plain(t), f"shape {shape}")
+        host, rows = to_numpy(got).reshape(-1, 8), msgs.reshape(-1, shape[-1])
+        for lane in sorted({0, len(rows) // 2, len(rows) - 1}):
+            check(list(host[lane]) == _hashlib_words(rows[lane]),
+                  f"sha256_words shape {shape} lane {lane} != hashlib")
+    log(f"K1 sha256_words: bit-equal to plain and hashlib, n=1 at {LANES} lanes and "
+        "1 lane, unbatched n in 8,9,16")
+    for lanes in (1, 2, LANES):
+        level = _words(rng, 2 * lanes, 8)
+        t = from_numpy(level, "cuda")
+        left, right = t[0::2], t[1::2]
+        check(all(ck._pair_operand(x, tuple(x.shape))[0].data_ptr() == x.data_ptr()
+                  for x in (left, right)), f"sha256_pair copies a tree level's rows")
+        got = ck.sha256_pair(left, right)
+        compare("sha256_pair", got, sha256.sha256_pair_plain(left, right),
+                f"every other row, {lanes} lanes")
+        host = to_numpy(got)
+        for lane in sorted({0, lanes // 2, lanes - 1}):
+            check(list(host[lane]) == _hashlib_words(level[2 * lane: 2 * lane + 2].reshape(-1)),
+                  f"sha256_pair tree level of {lanes} lanes, lane {lane} != hashlib")
+    log(f"K2 sha256_pair: bit-equal to plain and hashlib on the even and odd rows of "
+        f"a tree level, read in place, at 1, 2 and {LANES} lanes")
+    deps = np.repeat(np.arange(13, 3, -1), 2)
+    bshape = (205, 20)
+    leaf, sibs = _words(rng, *bshape, 8), _words(rng, *bshape, 13, 8)
+    idx = rng.integers(0, 1 << 14, bshape, dtype=np.uint32)  # above 2^13 too
+    args = (from_numpy(leaf, "cuda"), from_numpy(idx, "cuda"), from_numpy(sibs, "cuda"))
+    got = ck.merkle_compute_root(*args, deps)
+    compare("merkle_walk", got, merkle.compute_root_plain(*args, deps),
+            "depths 13..4 with period 20")
+    host = to_numpy(got).reshape(-1, 8)
+    for lane in (0, 1, 19, 2050, 4099):
+        check(list(host[lane]) == _hashlib_root(leaf.reshape(-1, 8)[lane],
+                                                int(idx.reshape(-1)[lane]),
+                                                sibs.reshape(-1, 13, 8)[lane],
+                                                int(deps[lane % 20])),
+              f"merkle_walk period-20 depths, lane {lane} != hashlib")
+    log("K3 merkle_walk: bit-equal to plain and hashlib at depths 13..4 with period 20, "
+        f"{205 * 20} lanes")
+
     # K4, K5: LANES = 241 proofs x 17 queries; even proofs carry valid paths
     for n_words in (4, 16):
         args = leafwalk_case(rng, n_proofs, n_q, n_words, 13, "cuda")
@@ -563,8 +668,8 @@ def phase_slice(proofs):
 
 
 def check_tamper(path, ok_g, masks_g, ok_c, masks_c) -> None:
-    """Lanes 1-15 rejected, lane 0 accepted, every mask of the card's run
-    equal to the CPU run's, keys in the same order."""
+    """Every lane but lane 0 rejected, lane 0 accepted, every mask of the
+    card's run equal to the CPU run's, keys in the same order."""
     import numpy as np
     import torch
 
@@ -575,7 +680,7 @@ def check_tamper(path, ok_g, masks_g, ok_c, masks_c) -> None:
     for k in masks_g:
         check(torch.equal(masks_g[k].cpu(), masks_c[k]), f"{path} mask {k}: GPU != CPU")
     check(torch.equal(ok_g.cpu(), ok_c), f"{path} accept bitmap: GPU != CPU")
-    log(f"{path} tamper matrix: lanes 1-15 rejected, lane 0 accepted; all "
+    log(f"{path} tamper matrix: lanes 1-{len(bm) - 1} rejected, lane 0 accepted; all "
         f"{len(masks_g)} masks equal to the CPU run")
 
 
@@ -635,6 +740,110 @@ def phase_tiled(proofs, tamper_cpu):
     return counts, slice_ms, fn, tb
 
 
+def phase_stark101():
+    """(g): the stark101 family on the card.  The prover through
+    prove_stark101(), its proof equal to the golden fixture field by field
+    and its query index to the CPU run's, its launches counted from 0; the
+    verifier through entry_stark101() at B = 4,096, every lane accepted, its
+    launches counted from 0; the tamper batch against the port's CPU run;
+    then the batch timed.  Returns (launch counts by path, the median batch
+    ms, fn, its batch)."""
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stark101 import proof as P101
+    from stark_symphony_tpu_torch.models.stark101 import verifier as V101
+
+    golden = P101.load_json(str(E.STARK101_GOLDEN))
+    counts = {}
+    prove_s = []
+    for run in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof, info = E.prove_stark101()
+        torch.cuda.synchronize()
+        prove_s.append(time.perf_counter() - t0)
+        if run == 0:
+            counts["stark101_prove"] = launch_counts()
+            check_counts("stark101_prove", counts["stark101_prove"])
+        for name in P101.Stark101Proof._fields:
+            got, want = getattr(proof, name), getattr(golden, name)
+            pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+            check(all(np.array_equal(a, b) for a, b in pairs),
+                  f"stark101 proof made on the card: {name} != the golden fixture")
+    _, cpu_info = E.prove_stark101("cpu")
+    check(info == cpu_info, f"stark101 prover: {info} on the card, {cpu_info} on the CPU")
+    log(f"stark101 prover: proof equal to the golden fixture in every field, "
+        f"idx {info['idx']} as on the CPU; launches {counts['stark101_prove']}; "
+        f"one prove {prove_s[0]:.3f} s (first call, host tables included), "
+        f"{prove_s[1]:.3f} s (second call)")
+
+    t0 = time.perf_counter()
+    fn, (batch,) = E.entry_stark101(N_PROOFS)
+    torch.cuda.synchronize()
+    log(f"stark101 batch: {N_PROOFS} lanes of the golden proof; entry_stark101() "
+        f"set-up {time.perf_counter() - t0:.3f} s")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bitmap = fn(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts["stark101"] = launch_counts()
+    log(f"stark101 path: verify_batch(B={N_PROOFS}) first run {first_s:.3f} s, "
+        f"launches {counts['stark101']}")
+    check(tuple(bitmap.shape) == (N_PROOFS,), f"stark101 bitmap shape {tuple(bitmap.shape)}")
+    n_ok = int(bitmap.sum().item())
+    check(n_ok == N_PROOFS, f"stark101: {N_PROOFS - n_ok} of {N_PROOFS} proofs rejected")
+    log(f"stark101 path: all {N_PROOFS} lanes accepted")
+    check_counts("stark101", counts["stark101"])
+
+    tb = stark101_tamper_batch(golden)
+    ok_g, masks_g = V101.verify(P101.to_torch(tb, "cuda"))
+    ok_c, masks_c = V101.verify(P101.to_torch(tb, "cpu"))
+    check_tamper("stark101", ok_g, masks_g, ok_c, masks_c)
+
+    batch_med, runs = batch_ms(fn, batch)  # the first run above was the warm-up
+    log(f"stark101 slice: {batch_med:.3f} ms per {N_PROOFS}-lane batch "
+        f"({N_PROOFS / (batch_med / 1e3):.1f} verifications/s; CUDA events, median of "
+        f"{len(runs)} runs: {', '.join(f'{r:.1f}' for r in runs)} ms)")
+    return counts, batch_med, fn, batch
+
+
+def phase_stark101_timings(rng, err):
+    """(g): K1, K2 and K3 at the shapes the stark101 paths give them at
+    B = 4,096, as time_cases does them.  Returns its rows."""
+    import numpy as np
+
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+
+    def words(*shape):
+        return from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint32), "cuda")
+
+    b = N_PROOFS
+    level = words(8192, 8)  # the prover's leaf level: 4,096 nodes above it
+    pos = from_numpy(rng.integers(0, 8192 + 17, (b, 3), dtype=np.uint32), "cuda")
+    cases = [
+        ("sha256_words", f"transcript n=8, {b} lanes", (words(b, 8),)),
+        ("sha256_words", f"transcript n=16, {b} lanes", (words(b, 16),)),
+        ("sha256_words", f"transcript n=9, {b} lanes", (words(b, 9),)),
+        ("sha256_words", f"trace leaves n=1, {3 * b} lanes", (words(b, 3, 1),)),
+        ("sha256_words", f"FRI leaves n=1, {20 * b} lanes", (words(b, 20, 1),)),
+        ("sha256_pair", "tree level, every other row, 4096 lanes",
+         (level[0::2], level[1::2])),
+        ("sha256_pair", "the same rows as contiguous copies, 4096 lanes",
+         (level[0::2].contiguous(), level[1::2].contiguous())),
+        ("merkle_walk", f"trace walk depth 13, {3 * b} lanes",
+         (words(b, 3, 8), pos, words(b, 3, 13, 8), None)),
+        ("merkle_walk", f"FRI walk depths 13..4, period 20, {20 * b} lanes",
+         (words(b, 20, 8), words(b, 20) & 0x1FFF, words(b, 20, 13, 8),
+          np.repeat(np.arange(13, 3, -1), 2))),
+    ]
+    return time_cases(cases, err)[0]
+
+
 def phase_timings(rng, err):
     """(f): each kernel against its plain version at the shapes the paths
     give it at B = 4,096 (Q = 16, 9 FRI layers): compared bit for bit
@@ -645,21 +854,14 @@ def phase_timings(rng, err):
     (``one_kernel_each``).  Returns rows (name, what, kernel ms, plain ms,
     bound ms, bound by, compressions, device ms a call)."""
     import numpy as np
-    import torch
 
-    from stark_symphony_tpu_torch.ops import fri, merkle, sha256
-    from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
     from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
-    from stark_symphony_tpu_torch.ops.u32 import from_i32, from_numpy, to_i32
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
 
     bq = N_PROOFS * 16
 
     def words(*shape):
         return from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint32), "cuda")
-
-    def i32(args):
-        return [to_i32(a).contiguous() if isinstance(a, torch.Tensor) else a
-                for a in args]
 
     # per-proof FRI layer depths 12..4, 16 queries each, as the slice pads them
     fri_depths = np.repeat(np.arange(12, 3, -1), 16)
@@ -683,6 +885,41 @@ def phase_timings(rng, err):
         ("leafwalk", f"cp n_words=16, depth 13, {bq} lanes", lw_cp),
         ("fri_all_layers", f"9 layers, depths 12..4, {bq} lanes", fri_args),
     ]
+    rows, calls = time_cases(cases, err)
+    # K3's block size at the main path's shapes: the wrapper's choice
+    # (ck.walk_threads) against the other one
+    rule = ck.walk_threads
+    try:
+        for (name, fn), row in zip(calls, rows):
+            if name == "merkle_walk":
+                times = []
+                for threads in (32, 128):
+                    ck.walk_threads = lambda lanes, depths, t=threads: t
+                    times.append(f"{threads} threads {cuda_ms(fn, 20):.4f} ms")
+                log(f"K3 block size [{row[1]}]: {', '.join(times)} a call")
+    finally:
+        ck.walk_threads = rule
+    return rows
+
+
+def time_cases(cases, err):
+    """Each case (kernel name, what, arguments) through its wrapper and its
+    plain version: bit for bit (largest difference into `err`), then both
+    timed with CUDA events, then one wrapper call of each profiled
+    (``one_kernel_each``).  Returns (rows, calls): rows (name, what, kernel
+    ms, plain ms, bound ms, bound by, compressions, device ms a call) and
+    one (name, call) a case."""
+    import torch
+
+    from stark_symphony_tpu_torch.ops import fri, merkle, sha256
+    from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
+    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+    from stark_symphony_tpu_torch.ops.u32 import from_i32, to_i32
+
+    def i32(args):
+        return [to_i32(a).contiguous() if isinstance(a, torch.Tensor) else a
+                for a in args]
+
     kern = {"sha256_words": ck.sha256_words, "sha256_pair": ck.sha256_pair,
             "merkle_walk": ck.merkle_compute_root, "leafwalk": fk.leafwalk,
             "fri_all_layers": fk.fri_all_layers}
@@ -718,20 +955,7 @@ def phase_timings(rng, err):
     for row, ms in zip(rows, one_kernel_each(calls)):
         row.append(ms)
         log(f"profile {row[0]} [{row[1]}]: one launch a call, {ms:.4f} ms on the device")
-    # K3's block size at the main path's shapes: the wrapper's choice
-    # (ck.walk_threads) against the other one
-    rule = ck.walk_threads
-    try:
-        for (name, fn), row in zip(calls, rows):
-            if name == "merkle_walk":
-                times = []
-                for threads in (32, 128):
-                    ck.walk_threads = lambda lanes, depths, t=threads: t
-                    times.append(f"{threads} threads {cuda_ms(fn, 20):.4f} ms")
-                log(f"K3 block size [{row[1]}]: {', '.join(times)} a call")
-    finally:
-        ck.walk_threads = rule
-    return rows
+    return rows, calls
 
 
 def _device_events(prof) -> list:
@@ -923,6 +1147,10 @@ def main() -> int:
     rows = phase_timings(rng, errs)  # (f)
     phase_profile("standard", fn, batch, std_ms)
     phase_profile("tiled", fn_t, tb, tiled_ms)
+    s101_counts, s101_ms, fn_s, sb = phase_stark101()  # (g)
+    counts.update(s101_counts)
+    phase_stark101_timings(rng, errs)
+    phase_profile("stark101", fn_s, sb, s101_ms)
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:
@@ -934,7 +1162,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/{source}", "replaces": replaces,
-            "launches": counts[path][name], "max_abs_err": errs[name],
+            "launches": counts[path][name],
+            "launches_per_path": {p: c[name] for p, c in counts.items() if c[name]},
+            "max_abs_err": errs[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
         })

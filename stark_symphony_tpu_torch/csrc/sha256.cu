@@ -23,7 +23,10 @@
 //   K1: its lanes' messages are one contiguous slab, brought in by one 1-D
 //       bulk copy (the odd last word of a ragged block by an ordinary load);
 //   K2: each operand by one 2-D tensor-map box of `threads` rows of 64
-//       bytes, encoded with the 64-byte swizzle (below);
+//       bytes, encoded with the 64-byte swizzle (below); an operand's rows
+//       may lie any even number of words (16 bytes) apart, 8 or more, so
+//       that the even and odd rows of a Merkle tree level (the prover's
+//       build_tree) are read in place;
 //   K3: the leaf and index slabs by bulk copies, then the siblings level by
 //       level through a two-stage ring, each level a 2-D tensor-map box of
 //       `threads` rows of 64 bytes, so that level l + 2 is in flight while
@@ -122,7 +125,9 @@ sha256_words_kernel(const uint64_t* __restrict__ msg, uint64_t* __restrict__ out
 
 // K2: per lane, the Merkle node hash sha256(left || right).  The three
 // tensor maps see the (lanes, 8) int64 left, right and out as (lanes rows)
-// x (8 elements), with the 64-byte swizzle and boxes of `threads` rows.
+// x (8 elements), with the 64-byte swizzle and boxes of `threads` rows;
+// out's rows are contiguous, left's and right's lie their own strides
+// apart.
 // Shared memory: the left and right slabs of threads x 64 B, from an
 // address aligned to 512 B (the swizzle's period), then one mbarrier.
 __global__ void __launch_bounds__(kMaxLaneThreads)
@@ -335,20 +340,28 @@ int stpu_sha256_words(const void* msg, void* out, int n, int lanes, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
+// left_stride and right_stride: elements from one row of the operand to the
+// next (8 where its rows are contiguous; even, for 16-byte strides).
 int stpu_sha256_pair(const void* left, const void* right, void* out, int lanes,
-                     int threads, int device, void* stream) {
-  if (lanes < 1 || !stpu::lane_threads_ok(threads)) return kBadArgument;
+                     int threads, int left_stride, int right_stride, int device,
+                     void* stream) {
+  if (lanes < 1 || !stpu::lane_threads_ok(threads) || left_stride < 8 ||
+      right_stride < 8 || (left_stride | right_stride) & 1) {
+    return kBadArgument;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   PFN_cuTensorMapEncodeTiled_v12000 encode = stpu::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const void* ptrs[3] = {left, right, out};
+  const int row_strides[3] = {left_stride, right_stride, 8};
   CUtensorMap maps[3];
   const cuuint64_t dims[2] = {8u, static_cast<cuuint64_t>(lanes)};
-  const cuuint64_t strides[1] = {8u * sizeof(uint64_t)};
   const cuuint32_t box[2] = {8u, static_cast<cuuint32_t>(threads)};
   const cuuint32_t elem_strides[2] = {1u, 1u};
   for (int m = 0; m < 3; ++m) {
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_strides[m]) *
+                                   sizeof(uint64_t)};
     const CUresult res = encode(
         &maps[m], CU_TENSOR_MAP_DATA_TYPE_UINT64, 2, const_cast<void*>(ptrs[m]), dims,
         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -1,4 +1,5 @@
-"""Entry points of the port's main path: the batched stwo verifier.
+"""Entry points of the port: the batched stwo verifier (the main path) and
+the stark101 verifier and prover.
 
 The PyTorch counterpart of ``__graft_entry__.entry()``: ``entry()`` returns
 ``(fn, (batch,))``, where ``batch`` is a stack of PRODUCTION proofs (trace
@@ -8,19 +9,29 @@ built from the 256 distinct committed fixtures and moved to `device`, and
 the same over the fast path: the batch is tiled once at ingestion
 (``tiled.tile_batch``) and ``fn`` is ``verify_batch_tiled``.  On a CUDA
 device every SHA-256, Merkle and fused-stage call of either path runs in
-the kernels of ``ops/cuda``.
+the kernels of ``ops/cuda``.  ``entry_stark101()`` is the same for the
+batched stark101 verifier, and ``prove_stark101()`` runs the stark101
+prover.
 """
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 
+from .models.stark101 import proof as P101
+from .models.stark101 import prover as prover101
+from .models.stark101 import verifier as verifier101
+from .models.stark101.config import Stark101Config
 from .models.stwo import proof as P
 from .models.stwo import tiled, verifier
 from .models.stwo.config import PRODUCTION
 from .utils.proofcache import cached_stwo_proof
 
 N_DISTINCT = 256
+STARK101_GOLDEN = (pathlib.Path(__file__).resolve().parents[1] / "tests" / "fixtures"
+                   / "stark101" / "golden_proof.json")
 
 
 def production_proofs(n_distinct: int = N_DISTINCT):
@@ -62,3 +73,28 @@ def entry_tiled(n_proofs: int = 4096, device: str = "cuda", proofs=None):
         return verifier.verify_batch_tiled(b, PRODUCTION)
 
     return fn, (tb,)
+
+
+def entry_stark101(n_proofs: int = 4096, device: str = "cuda"):
+    """(fn, (batch,)): the stark101 verifier at the reference configuration
+    (``Stark101Config()``) over n_proofs lanes on `device`.
+
+    Every lane holds the same proof, the committed golden one: the
+    statement, ``boundary1`` included, is a static part of the
+    configuration and the prover is deterministic, so the reference
+    configuration has exactly one honest proof (the JAX package's
+    ``replicate`` batches it the same way)."""
+    cfg = Stark101Config()
+    batch = P101.to_torch(P101.replicate(P101.load_json(str(STARK101_GOLDEN)), n_proofs),
+                          device)
+
+    def fn(b):
+        return verifier101.verify_batch(b, cfg)
+
+    return fn, (batch,)
+
+
+def prove_stark101(device: str = "cuda"):
+    """The stark101 prover at the reference configuration on `device`:
+    (Stark101Proof of numpy words, {"idx": the query index})."""
+    return prover101.prove(Stark101Config(), device=device)

@@ -43,7 +43,7 @@ _I = ctypes.c_int
 # CUDA stream.
 _SIGNATURES = {
     "stpu_sha256_words": (_P, _P, _I, _I, _I, _I, _P),
-    "stpu_sha256_pair": (_P, _P, _P, _I, _I, _I, _P),
+    "stpu_sha256_pair": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "stpu_merkle_walk": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
     "stpu_leafwalk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "stpu_fri_all_layers": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

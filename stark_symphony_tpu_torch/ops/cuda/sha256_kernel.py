@@ -20,7 +20,9 @@ All three read the caller's int64 words in place, lane-major (K1 the
 ``(..., 8)`` leaves, ``(...,)`` indices and ``(..., D, 8)`` siblings) and
 write the int64 ``(..., 8)`` result.  An operand that is broadcast, not
 contiguous or not 16-byte aligned is first made so (a copy); the
-verifier's operands never are.  K3's per-path depths go to the card once
+verifiers' operands never are.  K2 also reads in place an operand whose
+8-word rows lie one even stride apart (the even or odd rows of a Merkle
+tree level).  K3's per-path depths go to the card once
 per distinct array and are read at ``lane % period``.
 
 ``launches`` counts the launches of each kernel; nothing else changes it.
@@ -91,6 +93,34 @@ def _lane_major(x: torch.Tensor, shape) -> torch.Tensor:
     return x.expand(shape).clone(memory_format=torch.contiguous_format)
 
 
+def _row_stride(x: torch.Tensor, shape):
+    """The elements between the 8-word rows of `x`, if it has `shape`, is
+    16-byte aligned, and its rows lie one even stride of 8 or more apart
+    (what a tensor map reads); else None."""
+    if tuple(x.shape) != tuple(shape) or x.stride(-1) != 1 or x.data_ptr() % 16:
+        return None
+    row = span = None
+    for size, stride in zip(reversed(x.shape[:-1]), reversed(x.stride()[:-1])):
+        if size == 1:
+            continue
+        if row is None:
+            row = span = stride
+        elif stride != span:
+            return None
+        span *= size
+    row = 8 if row is None else row
+    return row if row >= 8 and row % 2 == 0 else None
+
+
+def _pair_operand(x: torch.Tensor, shape):
+    """(rows K2 reads, their stride): `x` in place where _row_stride allows,
+    else a contiguous copy broadcast to `shape`."""
+    stride = _row_stride(x, shape)
+    if stride is None:
+        return x.expand(shape).clone(memory_format=torch.contiguous_format), 8
+    return x, stride
+
+
 _device_depths = {}  # (device, shape, bytes) -> int32 tensor on the device
 
 
@@ -155,8 +185,10 @@ def sha256_pair(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     lanes = math.prod(shape[:-1])
     out = torch.empty(shape, dtype=WORD, device=left.device)
     if lanes:
-        _launch("sha256_pair", left.device, _lane_major(left, shape),
-                _lane_major(right, shape), out, lanes, lane_threads(lanes))
+        lrows, lstride = _pair_operand(left, shape)
+        rrows, rstride = _pair_operand(right, shape)
+        _launch("sha256_pair", left.device, lrows, rrows, out, lanes,
+                lane_threads(lanes), lstride, rstride)
     return out
 
 

@@ -56,20 +56,29 @@ def from_i32(y: torch.Tensor) -> torch.Tensor:
 
 
 def mul32_wide(a, b):
-    """Full 32x32 -> 64-bit product as a (hi, lo) pair of int64 words.
+    """Full 32x32 -> 64-bit product as a (hi, lo) pair of int64 words;
+    `b` is a word tensor or a Python int.
 
     The int64 product of two words can pass 2^63, so `b` is split into
     16-bit limbs: each partial product stays below 2^48 and the 64-bit
     result is exact, the same (hi, lo) that the JAX limb schoolbook gives.
     """
     a = torch.as_tensor(a, dtype=WORD)
-    b = torch.as_tensor(b, dtype=WORD, device=a.device)
+    if not isinstance(b, int):  # a Python int stays a scalar: no tensor made
+        b = torch.as_tensor(b, dtype=WORD, device=a.device)
     p0 = a * (b & MASK16)  # < 2^48
     p1 = a * (b >> 16)  # < 2^48
     low = p0 + ((p1 & MASK16) << 16)  # < 2^49
     lo = low & M32
     hi = ((p1 >> 16) + (low >> 32)) & M32
     return hi, lo
+
+
+def mullo32(a, b):
+    """Low 32 bits of the product (the wrapping uint32 multiply), by the
+    16-bit split of mul32_wide: the int64 product of two words can pass
+    2^63.  `b` is a word tensor or a Python int."""
+    return (a * (b & MASK16) + (((a * (b >> 16)) & MASK16) << 16)) & M32
 
 
 def add64(a_hi, a_lo, b_hi, b_lo):

@@ -199,10 +199,16 @@ def _emulated_launch(name, device, *args):
         assert threads == ck.lane_threads(lanes, n)
         res = TS.sha256_words_plain(msg.reshape(lanes, n))
     elif name == "sha256_pair":
-        left, right, out, lanes, threads = args
-        ins = [(left, lanes * 8), (right, lanes * 8)]
+        left, right, out, lanes, threads, lstride, rstride = args
+        ins = []
         assert threads == ck.lane_threads(lanes)
-        res = TS.sha256_pair_plain(left.reshape(lanes, 8), right.reshape(lanes, 8))
+        rows = []
+        for x, stride in ((left, lstride), (right, rstride)):
+            # the tensor map's view: lanes rows of 8 words, `stride` apart
+            assert x.dtype == WORD and x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            assert stride >= 8 and stride % 2 == 0
+            rows.append(torch.as_strided(x, (lanes, 8), (stride, 1)))
+        res = TS.sha256_pair_plain(*rows)
     else:
         leaf, idx, dep, period, sibs, out, depth, lanes, threads = args
         ins = [(leaf, lanes * 8), (idx, lanes), (sibs, lanes * depth * 8)]
@@ -259,19 +265,24 @@ def test_kernel_wrappers_layout(emulated):
     np.testing.assert_array_equal(to_numpy(ck.sha256_words(strided)),
                                   to_numpy(TS.sha256_words_plain(strided)))
     assert _emulated_launch.seen[0].data_ptr() != strided.data_ptr()
-    # K2: the caller's own storage when both operands are lane-major, else
-    # a copy of the one that is broadcast, strided or misaligned
+    # K2: the caller's own storage when both operands are lane-major or
+    # their rows lie one even stride apart (a tree level's even and odd
+    # rows), else a copy of the one that is broadcast, strided within its
+    # rows or misaligned
     left, right = from_numpy(_rand((4, 5, 8), seed=14)), from_numpy(_rand((4, 5, 8), seed=15))
     wide = from_numpy(_rand((4, 5, 16), seed=20))
+    level = from_numpy(_rand((4, 10, 8), seed=22))
     flat = from_numpy(_rand((4 * 5 * 8 + 1,), seed=21))
     misaligned = flat[1:].view(4, 5, 8)
     assert misaligned.data_ptr() % 16 == 8
     for other, in_place in ((right, True), (right[0, 0], False), (wide[..., ::2], False),
-                            (misaligned, False)):
+                            (misaligned, False), (level[:, 1::2], True),
+                            (wide[..., 8:], True), (level[:, 3:8], False)):
         got = ck.sha256_pair(left, other)
         seen = _emulated_launch.seen
         assert seen[0].data_ptr() == left.data_ptr()
         assert (seen[1].data_ptr() == other.data_ptr()) == in_place
+        assert seen[6] == (other.stride(-2) if in_place else 8)
         np.testing.assert_array_equal(to_numpy(got),
                                       to_numpy(TS.sha256_pair_plain(left, other)))
     assert tuple(ck.sha256_pair(left[:0], right[:0]).shape) == (0, 5, 8)
