@@ -56,7 +56,20 @@ from 0 just before it runs and read just after.  In phases:
       PATHS; K1-K3 at the stark101 shapes are compared and timed as in
       (f); the verifications/s (median of 5 batches of 4,096, each timed
       alone), the device's busy share of a profiled batch and the seconds
-      of one prove are printed.
+      of one prove are printed;
+  (h) graphs: K1 at n = 88 in 128-lane blocks (its launcher sets the
+      shared-memory attribute inside the capture) captured and replayed
+      against eager; then each verifier captured once as a CUDA graph
+      through its entry point with ``graphed=True``
+      (``tools/build.capture``) and replayed:
+      launches at capture equal the eager run's; the bitmap and every mask
+      equal the eager run's, bit for bit, on the valid batch and on the
+      batch with the tamper classes in lanes 1-15 (stark101 1-10); eager
+      and graphed batch ms, the busy share of a profiled replay, capture
+      and instantiate seconds and the graph pool's memory, each with the
+      card's name and power limit; then ``make_chained`` (chain 2), the
+      stream (``parallel/pipeline.StreamVerifier``, 8 host batches) and
+      ``tools.build``'s build and ``--load --check``, each against eager.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -77,6 +90,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+CARD = "not read"  # the card's name and power limit, as nvidia-smi gives them
 PACKAGE = "stark_symphony_tpu_torch"
 N_PROOFS = 4096
 LANES = 4097  # not a multiple of any block size: the ragged edge runs
@@ -121,17 +135,25 @@ STARK101_TAMPERS = [
 ]
 
 
+def tamper_lanes(batch, tampers):
+    """A copy of a numpy proof batch (either proof system) with lane k
+    tampered by the k-th class of `tampers`, k = 1, 2, ...; a tuple field's
+    index is taken mod the field's length (the proof's FRI layer count)."""
+    batch = type(batch)(*(tuple(a.copy() for a in x) if isinstance(x, tuple) else x.copy()
+                          for x in batch))
+    fields = batch._asdict()
+    for lane, (field, mutate, idx) in enumerate(tampers, 1):
+        arr = fields[field] if idx is None else fields[field][idx % len(fields[field])]
+        arr[lane] = mutate(arr[lane])
+    return batch
+
+
 def stark101_tamper_batch(proof):
     """A batch of 1 + len(STARK101_TAMPERS) copies of a numpy stark101
     proof: lane 0 clean, lane k tampered by the k-th class."""
     from stark_symphony_tpu_torch.models.stark101 import proof as P101
 
-    batch = P101.replicate(proof, 1 + len(STARK101_TAMPERS))
-    fields = batch._asdict()
-    for lane, (field, mutate, idx) in enumerate(STARK101_TAMPERS, 1):
-        arr = fields[field] if idx is None else fields[field][idx]
-        arr[lane] = mutate(arr[lane])
-    return batch
+    return tamper_lanes(P101.replicate(proof, 1 + len(STARK101_TAMPERS)), STARK101_TAMPERS)
 
 
 def tamper_batch(proof, n_layers: int):
@@ -140,12 +162,9 @@ def tamper_batch(proof, n_layers: int):
     `n_layers`, the proof's FRI layer count (9 at PRODUCTION)."""
     from stark_symphony_tpu_torch.models.stwo import proof as P
 
-    batch = P.replicate(proof, 1 + len(PROD_TAMPERS))
-    fields = batch._asdict()
-    for lane, (field, mutate, idx) in enumerate(PROD_TAMPERS, 1):
-        arr = fields[field] if idx is None else fields[field][idx % n_layers]
-        arr[lane] = mutate(arr[lane])
-    return batch
+    if len(proof.fri_witnesses) != n_layers:
+        raise ValueError(f"the proof has {len(proof.fri_witnesses)} FRI layers, not {n_layers}")
+    return tamper_lanes(P.replicate(proof, 1 + len(PROD_TAMPERS)), PROD_TAMPERS)
 
 
 KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces,
@@ -418,11 +437,13 @@ def phase_device():
     if not (ROOT / PACKAGE / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: {PACKAGE}/ not found beside this "
                          "script; run it from a checkout of the repository")
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
-    log(smi[0].strip())
+    CARD = smi[0].strip()
+    log(CARD)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count {torch.cuda.device_count()}")
 
@@ -1125,6 +1146,215 @@ def phase_profile(path, fn, batch, slice_ms):
           f"profile {path} saw {[e.key for e in mine]}, want {list(want)}")
 
 
+def graph_profile(path, fn, batch) -> float:
+    """(h): torch.profiler over one graphed call of `path`, itself timed
+    with CUDA events: the device's busy share of that call (above 100 %
+    fails), and the stpu:: kernels the profiler saw inside the replayed
+    graph (logged, not required: what the profiler shows of a graph is its
+    own).  Returns the busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn(batch)
+        end.record()
+        torch.cuda.synchronize()
+    call_ms = start.elapsed_time(end)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    seen = {w: sum(e.count for e in dev if f"stpu::{w}(" in e.key)
+            for _, _, _, w in KERNELS.values()}
+    check(busy_ms <= call_ms, f"graph profile {path}: device busy {busy_ms:.3f} ms in a "
+          f"{call_ms:.3f} ms call")
+    log(f"graph profile {path}: device busy {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in dev)} device activities, "
+        f"{100 * busy_ms / call_ms:.1f} % of the profiled graphed call's {call_ms:.3f} ms "
+        f"(CUDA events); stpu:: kernels seen inside the graph {seen} [{CARD}]")
+    return busy_ms
+
+
+def phase_graphs(proofs) -> dict:
+    """(h): each verifier captured once as a CUDA graph through its entry
+    point (``graphed=True``) at B = 4,096, and replayed.  For each path:
+    the launches recorded at capture equal an eager run's and PATHS; a
+    graph of the verifier with its masks, fed the valid batch and
+    then the valid batch with the tamper classes in lanes 1-15 (stark101
+    1-10), gives the eager bitmap and every eager mask bit for bit, and so
+    does the entry's graph its bitmap: exactly those lanes are rejected,
+    so replay reads new inputs; eager and graphed batch ms (median of 5,
+    each timed alone), the device's busy share of a profiled graphed call,
+    capture and instantiate seconds and the graph pool's memory are
+    printed with the card's name and power limit.  Then, on the tiled
+    path: make_chained at chain 2 gives the eager bitmaps; StreamVerifier
+    over 8 host batches gives the eager bitmaps, with its proofs/s; and
+    tools.build's build, then load --check, round-trip with stale false.
+    Returns the launches of each graph, by path."""
+    import contextlib
+    import functools
+    import io
+
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stark101 import proof as P101
+    from stark_symphony_tpu_torch.models.stark101 import verifier as V101
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import tiled, verifier
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.parallel import pipeline
+    from stark_symphony_tpu_torch.tools import build as TB
+
+    # K1 above 48 KB of shared memory a block (n = 88 in 128-lane blocks)
+    # sets its attribute on every launch, and every launcher sets the
+    # device: both legal under a capture, or this raises
+    msgs = from_numpy(np.random.default_rng(6).integers(0, 1 << 32, (BIG_LANES, 88),
+                                                        dtype=np.uint32), "cuda")
+    k1 = TB.capture(ck.sha256_words, (msgs,), warmup=1)
+    check(torch.equal(k1(msgs), ck.sha256_words(msgs)), "K1 captured at n = 88 != eager")
+    log(f"graph K1 at n = 88, {BIG_LANES} lanes (cudaFuncSetAttribute in the capture): "
+        "replay equal to eager")
+    del k1, msgs
+
+    valid = E.production_batch(N_PROOFS, proofs)
+    golden = P101.replicate(P101.load_json(str(E.STARK101_GOLDEN)), N_PROOFS)
+    paths = [  # (path, its graphed entry, numpy batch, tamper classes, to the card,
+        #         the verifier with its masks)
+        ("standard", lambda: E.entry(N_PROOFS, "cuda", proofs, graphed=True), valid,
+         PROD_TAMPERS, lambda b: P.to_torch(b, "cuda"),
+         lambda b: verifier.verify(b, PRODUCTION, linkage="reference")),
+        ("tiled", lambda: E.entry_tiled(N_PROOFS, "cuda", proofs, graphed=True), valid,
+         PROD_TAMPERS, lambda b: tiled.tile_batch(b, PRODUCTION, "cuda"),
+         lambda b: verifier.verify_batch_tiled(b, PRODUCTION, with_masks=True)),
+        ("stark101", lambda: E.entry_stark101(N_PROOFS, graphed=True), golden,
+         STARK101_TAMPERS, lambda b: P101.to_torch(b, "cuda"), V101.verify),
+    ]
+    graphed, eager_bitmaps = {}, {}
+    for path, make, host, tampers, to_card, masks_fn in paths:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn, (batch,) = make()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(all(n >= fn.launches[k] for k, n in launch_counts().items()),
+              f"{path} graph: the counts do not hold the capture's launches")
+        reset_counts()
+        eager_ms, eager_runs = batch_ms(fn.fn, batch)
+        eager = {k: n // len(eager_runs) for k, n in launch_counts().items()}
+        check(fn.launches == eager and all(n % len(eager_runs) == 0
+                                           for n in launch_counts().values()),
+              f"{path} graph: {fn.launches} launches at capture, eager "
+              f"{launch_counts()} in {len(eager_runs)} runs")
+        check_counts(path, fn.launches)
+        graphed[f"{path}_graphed"] = fn.launches
+        log(f"graph {path}: entry(graphed=True) set-up {setup_s:.3f} s (batch, 2 warm-up "
+            f"runs, capture); capture {fn.capture_s:.3f} s, instantiate "
+            f"{fn.instantiate_s:.3f} s; graph pool {fn.pool_bytes / 2**20:.1f} MiB; "
+            f"launches at capture {fn.launches}, as in each eager run [{CARD}]")
+
+        n_bad = len(tampers)
+        tampered = to_card(tamper_lanes(host, tampers))
+        eager = [masks_fn(b) for b in (batch, tampered)]
+        ok_v, ok_t = (ok.cpu().numpy() for ok, _ in eager)
+        check(ok_v.all(), f"{path}: eager run rejected valid lanes")
+        check(ok_t[0] and not ok_t[1:1 + n_bad].any() and ok_t[1 + n_bad:].all(),
+              f"{path}: eager tampered batch accepts lanes {ok_t.nonzero()[0][:20]}")
+        eager_bitmaps[path] = [ok for ok, _ in eager]
+        gm = TB.capture(masks_fn, (batch,), warmup=1)
+        for what, b, (ok_e, masks_e) in (("valid", batch, eager[0]),
+                                         ("tampered", tampered, eager[1])):
+            ok_g, masks_g = gm(b)
+            check(list(masks_g) == list(masks_e), f"{path} {what}: graphed mask keys")
+            for k in masks_e:
+                check(torch.equal(masks_g[k], masks_e[k]),
+                      f"{path} {what}: graphed mask {k} != eager")
+            check(torch.equal(ok_g, ok_e), f"{path} {what}: graphed bitmap != eager")
+            check(torch.equal(fn(b), ok_e), f"{path} {what}: entry graph's bitmap != eager")
+        log(f"graph {path}: replay equal to eager, bit for bit, in the bitmap and all "
+            f"{len(eager[0][1])} masks, on the valid batch and on the batch with lanes "
+            f"1-{n_bad} tampered (exactly those rejected); the entry's graph gives both "
+            "bitmaps")
+        del gm, tampered, eager
+
+        graph_ms, graph_runs = batch_ms(fn, batch)
+        replay_ms, _ = batch_ms(lambda _: fn.graph.replay(), batch)
+        submit_ms = []  # how long the replay call holds the host
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn.graph.replay()
+            submit_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        submit_ms.sort()
+        unit = "verifications" if path == "stark101" else "proofs"
+        log(f"graph {path}: {N_PROOFS}-lane batch eager {eager_ms:.3f} ms "
+            f"({', '.join(f'{r:.1f}' for r in eager_runs)}), graphed {graph_ms:.3f} ms "
+            f"({', '.join(f'{r:.2f}' for r in graph_runs)}), "
+            f"{N_PROOFS / (graph_ms / 1e3):.1f} {unit}/s, {eager_ms / graph_ms:.2f}x; "
+            f"replay alone {replay_ms:.3f} ms (CUDA events, median of 5); the replay "
+            f"call holds the host {submit_ms[2]:.3f} ms (host clock, median of 5: "
+            f"{', '.join(f'{t:.2f}' for t in submit_ms)}) [{CARD}]")
+        graph_profile(path, fn, batch)
+        del fn, batch
+        torch.cuda.empty_cache()
+
+    tb_valid = tiled.tile_batch(valid, PRODUCTION, "cuda")
+    tb_bad = tiled.tile_batch(tamper_lanes(valid, PROD_TAMPERS), PRODUCTION, "cuda")
+    ones = torch.ones(N_PROOFS, dtype=torch.int64, device="cuda")
+    chained = TB.capture(TB.make_chained(PRODUCTION, 2, True), (tb_valid, ones), warmup=1)
+    for b, want in zip((tb_valid, tb_bad), eager_bitmaps["tiled"]):
+        check(torch.equal(chained(b, ones), want.to(torch.int64)),
+              "make_chained(chain=2) != the eager bitmap")
+    log(f"make_chained (tiled, chain 2, one graph): the eager bitmaps of the valid and "
+        f"the tampered batch; capture {chained.capture_s:.3f} s, instantiate "
+        f"{chained.instantiate_s:.3f} s, launches {chained.launches} [{CARD}]")
+    del chained, tb_valid, tb_bad
+    torch.cuda.empty_cache()
+
+    stream = pipeline.StreamVerifier(
+        lambda b: verifier.verify_batch_tiled(b, PRODUCTION), depth=2,
+        layout=functools.partial(tiled.relayout, cfg=PRODUCTION))
+    t0 = time.perf_counter()
+    stream.feed(valid)
+    first = stream.finish()
+    first_s = time.perf_counter() - t0
+    hosts = [valid, tamper_lanes(valid, PROD_TAMPERS)] * 4
+    t0 = time.perf_counter()
+    for h in hosts:
+        stream.feed(h)
+    got = stream.finish()
+    stream_s = time.perf_counter() - t0
+    want = eager_bitmaps["tiled"]
+    check(len(got) == len(hosts) and torch.equal(first[0], want[0])
+          and all(torch.equal(g, want[i % 2]) for i, g in enumerate(got)),
+          "StreamVerifier bitmaps != eager")
+    log(f"stream (tiled, depth 2, pinned staging, copy stream): {len(hosts)} host batches "
+        f"of {N_PROOFS} in {stream_s:.3f} s, {len(hosts) * N_PROOFS / stream_s:.1f} proofs/s, "
+        f"bitmaps equal to eager; first batch with the capture {first_s:.3f} s [{CARD}]")
+    del stream
+    torch.cuda.empty_cache()
+
+    def cli(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            TB.main(list(argv))
+        return [json.loads(line) for line in out.getvalue().splitlines()]
+
+    built = cli("--path", "tiled", "--batch", str(N_PROOFS), "--out",
+                str(ROOT / "build" / "graphs"))[-1]
+    loaded = cli("--load", built["artifact"], "--check")
+    check(loaded[0]["stale"] is False and loaded[-1].get("check") == "ok",
+          f"tools.build --load --check: {loaded}")
+    log(f"tools.build: build {built}; load --check {loaded} [{CARD}]")
+    return graphed
+
+
 def main() -> int:
     phase_device()  # (a)
     sys.path.insert(0, str(ROOT))
@@ -1151,6 +1381,8 @@ def main() -> int:
     counts.update(s101_counts)
     phase_stark101_timings(rng, errs)
     phase_profile("stark101", fn_s, sb, s101_ms)
+    del fn, batch, fn_t, tb, fn_s, sb
+    counts.update(phase_graphs(proofs))  # (h)
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:

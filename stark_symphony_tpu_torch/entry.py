@@ -5,7 +5,10 @@ The PyTorch counterpart of ``__graft_entry__.entry()``: ``entry()`` returns
 ``(fn, (batch,))``, where ``batch`` is a stack of PRODUCTION proofs (trace
 2^9 x 4 columns, LDE 2^13, 16 queries, 8 inner FRI layers, 5 PoW bits)
 built from the 256 distinct committed fixtures and moved to `device`, and
-``fn`` is ``verify_batch(..., linkage="reference")``.  ``entry_tiled()`` is
+``fn`` is ``verify_batch(..., linkage="reference")``; with
+``graphed=True``, ``fn`` is that verifier captured once as a CUDA graph
+(``tools.build.capture``) and replayed on each call, the counterpart of
+jitting the function JAX's ``entry()`` returns.  ``entry_tiled()`` is
 the same over the fast path: the batch is tiled once at ingestion
 (``tiled.tile_batch``) and ``fn`` is ``verify_batch_tiled``.  On a CUDA
 device every SHA-256, Merkle and fused-stage call of either path runs in
@@ -27,6 +30,7 @@ from .models.stark101.config import Stark101Config
 from .models.stwo import proof as P
 from .models.stwo import tiled, verifier
 from .models.stwo.config import PRODUCTION
+from .tools.build import capture
 from .utils.proofcache import cached_stwo_proof
 
 N_DISTINCT = 256
@@ -53,31 +57,38 @@ def production_batch(n_proofs: int, proofs=None) -> P.StwoProof:
     )
 
 
-def entry(n_proofs: int = 4096, device: str = "cuda", proofs=None):
+def _graph(fn, batch, graphed: bool):
+    return (capture(fn, (batch,)) if graphed else fn), (batch,)
+
+
+def entry(n_proofs: int = 4096, device: str = "cuda", proofs=None,
+          graphed: bool = False):
     """(fn, (batch,)) over n_proofs PRODUCTION proofs on `device`; `proofs`
-    as in production_batch."""
+    as in production_batch; `graphed`: fn replays a captured graph."""
     batch = P.to_torch(production_batch(n_proofs, proofs), device)
 
     def fn(b):
         return verifier.verify_batch(b, PRODUCTION, linkage="reference")
 
-    return fn, (batch,)
+    return _graph(fn, batch, graphed)
 
 
-def entry_tiled(n_proofs: int = 4096, device: str = "cuda", proofs=None):
+def entry_tiled(n_proofs: int = 4096, device: str = "cuda", proofs=None,
+                graphed: bool = False):
     """(fn, (tb,)) over n_proofs PRODUCTION proofs tiled on `device`;
-    `proofs` as in production_batch."""
+    `proofs` and `graphed` as in entry."""
     tb = tiled.tile_batch(production_batch(n_proofs, proofs), PRODUCTION, device)
 
     def fn(b):
         return verifier.verify_batch_tiled(b, PRODUCTION)
 
-    return fn, (tb,)
+    return _graph(fn, tb, graphed)
 
 
-def entry_stark101(n_proofs: int = 4096, device: str = "cuda"):
+def entry_stark101(n_proofs: int = 4096, device: str = "cuda", graphed: bool = False):
     """(fn, (batch,)): the stark101 verifier at the reference configuration
-    (``Stark101Config()``) over n_proofs lanes on `device`.
+    (``Stark101Config()``) over n_proofs lanes on `device`; `graphed` as in
+    entry.
 
     Every lane holds the same proof, the committed golden one: the
     statement, ``boundary1`` included, is a static part of the
@@ -91,7 +102,7 @@ def entry_stark101(n_proofs: int = 4096, device: str = "cuda"):
     def fn(b):
         return verifier101.verify_batch(b, cfg)
 
-    return fn, (batch,)
+    return _graph(fn, batch, graphed)
 
 
 def prove_stark101(device: str = "cuda"):

@@ -23,7 +23,7 @@ import torch
 from ...ops import field101 as F
 from ...ops import merkle
 from ...ops.sha256 import sha256_words
-from ...ops.u32 import WORD
+from ...ops.u32 import WORD, const
 from . import channel as ch
 from .config import Stark101Config
 
@@ -131,7 +131,7 @@ def verify(proof, cfg: Stark101Config = Stark101Config()):
         torch.stack(indices, dim=-1),
         sibs,
         proof.fri_roots.repeat_interleave(2, dim=-2),
-        _fri_depths(cfg),
+        const(tuple(_fri_depths(cfg).tolist()), idx.device, torch.int32),
     ).all(dim=-1)
 
     masks["fri_last"] = cp_ev == proof.last

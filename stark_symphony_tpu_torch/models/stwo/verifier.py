@@ -19,7 +19,6 @@ config folds all the way down.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ...ops import field as F
@@ -32,7 +31,7 @@ from ...ops.circle import (
     query_point_table_on,
 )
 from ...ops.sha256 import sha256_pair, sha256_words
-from ...ops.u32 import WORD, bit_reverse, byte_swap32, from_i32, lt64, to_i32
+from ...ops.u32 import bit_reverse, byte_swap32, const, from_i32, lt64, to_i32
 from . import channel as ch
 from .config import StwoConfig
 from .constraints import REGISTRY
@@ -48,8 +47,8 @@ def _per_query(v, n: int):
 
 def _combine_partitions(p0, p1, p2, p3):
     """p0 + p1*i + p2*j + p3*ij."""
-    i, j, ij = (torch.tensor(u, dtype=WORD, device=p0.device)
-                for u in ([0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]))
+    i, j, ij = (F.qm31_scalar(*u, p0.device)
+                for u in ((0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, 1)))
     res = F.qm31_add(p0, F.qm31_mul(p1, i))
     res = F.qm31_add(res, F.qm31_mul(p2, j))
     return F.qm31_add(res, F.qm31_mul(p3, ij))
@@ -358,7 +357,7 @@ def verify(proof, cfg: StwoConfig, air: str = "wide_fibonacci",
         torch.cat(m_idx, dim=-1),
         torch.cat(m_sibs, dim=-3),
         torch.cat(m_roots, dim=-2),
-        np.array(m_depths),
+        const(tuple(m_depths), queries.device, torch.int32),
     )
     for l in range(len(roots)):
         masks[f"fri_merkle_{l}"] = ok_paths[..., l * n_q: (l + 1) * n_q].all(dim=-1)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from . import field as F
-from .u32 import M32, WORD
+from .u32 import M32, const
 
 M31_CIRCLE_GEN = (2, 1268011823)
 M31_CIRCLE_LOG_ORDER = 31
@@ -56,8 +56,8 @@ def point_add(p, q):
 def point_from_index(index):
     """index (word tensor) -> G * index: 31 conditional adds against the
     constant doubling table."""
-    table = torch.from_numpy(GEN_POW2.astype(np.int64)).to(index.device)
-    identity = torch.tensor([1, 0], dtype=WORD, device=index.device)
+    table = const(tuple(map(tuple, GEN_POW2.tolist())), index.device)
+    identity = const((1, 0), index.device)
     res = torch.where(((index & 1) == 1)[..., None], table[0], identity)
     for k in range(1, 31):
         added = point_add(res, table[k].expand(res.shape))

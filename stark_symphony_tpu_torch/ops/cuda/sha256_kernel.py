@@ -35,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from ..u32 import WORD
+from ..u32 import WORD, const
 from . import build
 
 launches = {"sha256_words": 0, "sha256_pair": 0, "merkle_walk": 0}
@@ -121,15 +121,13 @@ def _pair_operand(x: torch.Tensor, shape):
     return x, stride
 
 
-_device_depths = {}  # (device, shape, bytes) -> int32 tensor on the device
-
-
 def _periodic_depths(depths, bshape, device):
     """(int32 depths on `device`, period): lane i of the flattened batch
     `bshape` has depth depths[i % period].  A depth array whose shape is a
     trailing part of `bshape` (after leading 1s) keeps its own size as the
     period; any other is broadcast to the whole batch.  Host arrays are
-    copied to the card once per distinct array."""
+    copied to the card once per distinct array (``u32.const``, which
+    never evicts, so a CUDA graph may read them)."""
     if not isinstance(depths, torch.Tensor):
         depths = torch.from_numpy(np.asarray(depths, np.int64))
     shape = tuple(depths.shape)
@@ -142,13 +140,8 @@ def _periodic_depths(depths, bshape, device):
     period = max(1, math.prod(shape))
     if depths.device == device:
         return depths.to(torch.int32).contiguous().reshape(-1), period
-    host = np.ascontiguousarray(depths.cpu().numpy().astype(np.int32).reshape(-1))
-    key = (device, period, host.tobytes())
-    if key not in _device_depths:
-        if len(_device_depths) >= 64:
-            _device_depths.clear()
-        _device_depths[key] = torch.from_numpy(host).to(device)
-    return _device_depths[key], period
+    host = tuple(depths.cpu().numpy().astype(np.int32).reshape(-1).tolist())
+    return const(host, device, torch.int32), period
 
 
 def _launch(name: str, device: torch.device, *args) -> None:

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .u32 import M32, WORD, mul32_wide
+from .u32 import M32, WORD, const, mul32_wide
 
 P = 0x7FFFFFFF  # 2^31 - 1
 
@@ -144,7 +144,8 @@ def qm31(a, b, c, d):
 
 
 def qm31_scalar(a, b, c, d, device="cpu"):
-    return torch.tensor([a, b, c, d], dtype=WORD, device=device)
+    """A constant QM31 element on `device` (shared: never write to it)."""
+    return const((a, b, c, d), device)
 
 
 def qm31_zero(shape=(), device="cpu"):
@@ -152,8 +153,7 @@ def qm31_zero(shape=(), device="cpu"):
 
 
 def qm31_one(shape=(), device="cpu"):
-    one = torch.tensor([1, 0, 0, 0], dtype=WORD, device=device)
-    return one.expand(tuple(shape) + (4,))
+    return qm31_scalar(1, 0, 0, 0, device).expand(tuple(shape) + (4,))
 
 
 def qm31_re(x):
@@ -194,7 +194,7 @@ def qm31_conj(a):
 
 
 def _two_plus_i(like):
-    return torch.tensor([2, 1], dtype=WORD, device=like.device)
+    return const((2, 1), like.device)
 
 
 def qm31_mul(x, y):

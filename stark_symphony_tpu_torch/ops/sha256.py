@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .cuda import sha256_kernel as _ck
-from .u32 import M32, rotr
+from .u32 import M32, const, rotr
 
 K = np.array([
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -42,8 +42,7 @@ IV = np.array([
 
 
 def iv(shape=(), device="cpu") -> torch.Tensor:
-    return torch.tensor(IV.astype(np.int64), device=device).expand(
-        tuple(shape) + (8,))
+    return const(tuple(IV.tolist()), device).expand(tuple(shape) + (8,))
 
 
 def _small_sigma0(x):
@@ -159,7 +158,7 @@ def sha256_words_plain(words: torch.Tensor) -> torch.Tensor:
         for b in range(n // 16):
             state = compress(state, words[..., 16 * b: 16 * (b + 1)])
         return compress_const_schedule(state, const_sched)
-    pad_t = torch.tensor(pad.astype(np.int64), device=words.device)
+    pad_t = const(tuple(pad.tolist()), words.device)
     full = torch.cat(
         [words, pad_t.expand(words.shape[:-1] + pad_t.shape)], dim=-1)
     for b in range(n_blocks):

@@ -21,6 +21,8 @@ shape-polymorphic over broadcastable batch dimensions.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,14 +31,28 @@ MASK16 = 0xFFFF
 WORD = torch.int64
 
 
+@functools.lru_cache(maxsize=None)
+def const(values: tuple, device, dtype=WORD) -> torch.Tensor:
+    """The constant tensor `values` on `device`, made once per (values,
+    device, dtype) and shared by every caller, which must not write to it.
+    So a verifier's second call copies nothing from the host, and a CUDA
+    graph can capture it (a capture may hold no host-to-device copy)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def host_i32(a) -> np.ndarray:
+    """np.uint32 words -> contiguous int32 bit patterns (a view where `a`
+    is already contiguous uint32; a 0-d array comes back 1-d): the form in
+    which words travel to a device."""
+    return np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
+
+
 def from_numpy(a, device="cpu") -> torch.Tensor:
     """np.uint32 array -> int64 word tensor on `device`.
 
     The host copy travels as int32 bit patterns (half the bytes of int64)
     and is widened on the device."""
-    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
-    t = torch.from_numpy(a.view(np.int32)).to(device)
-    return t.to(WORD) & M32
+    return from_i32(torch.from_numpy(host_i32(a)).to(device))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -64,8 +80,8 @@ def mul32_wide(a, b):
     result is exact, the same (hi, lo) that the JAX limb schoolbook gives.
     """
     a = torch.as_tensor(a, dtype=WORD)
-    if not isinstance(b, int):  # a Python int stays a scalar: no tensor made
-        b = torch.as_tensor(b, dtype=WORD, device=a.device)
+    if not isinstance(b, torch.Tensor):  # a Python or numpy integer stays a
+        b = int(b)  # scalar: no tensor is made
     p0 = a * (b & MASK16)  # < 2^48
     p1 = a * (b >> 16)  # < 2^48
     low = p0 + ((p1 & MASK16) << 16)  # < 2^49

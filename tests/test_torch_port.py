@@ -34,6 +34,8 @@ def test_port_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
+        "assert {'stark_symphony_tpu_torch.tools.build',"
+        " 'stark_symphony_tpu_torch.parallel.pipeline'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('stark_symphony_tpu.') or m == 'stark_symphony_tpu')\n"
         "assert not bad, bad\n"

@@ -39,6 +39,7 @@ from stark_symphony_tpu_torch.ops import merkle as TM
 from stark_symphony_tpu_torch.ops import sha256 as TS
 from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
 from stark_symphony_tpu_torch.ops.u32 import from_numpy, to_numpy
+from stark_symphony_tpu_torch.parallel.pipeline import StreamVerifier
 from chip_smoke import STARK101_TAMPERS, stark101_tamper_batch
 import test_stark101
 from test_torch_sha256 import _emulated_launch
@@ -171,6 +172,14 @@ def test_prover_json_equals_the_fixture(fixtures_dir, proved):
 def test_prove_then_verify(proved):
     ok, masks = TV.verify(TP.to_torch(proved[0]), CFG)
     assert ok.shape == () and bool(ok), [k for k, v in masks.items() if not bool(v)]
+
+
+def test_stream_equals_jax(golden, results):
+    """The numpy tamper batch through the port's stream: JAX's bitmap."""
+    stream = StreamVerifier(TV.verify_batch, device="cpu")
+    stream.feed(stark101_tamper_batch(golden))
+    (got,) = stream.finish()
+    np.testing.assert_array_equal(got.numpy(), results["jax"][0])
 
 
 def test_entry_stark101_on_cpu():

@@ -14,6 +14,8 @@
   around an emulated launch gives the plain route's masks.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from stark_symphony_tpu_torch.models.stwo import verifier as TV
 from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
 from stark_symphony_tpu_torch.ops import fri
 from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
+from stark_symphony_tpu_torch.parallel.pipeline import StreamVerifier
 from stark_symphony_tpu_torch.utils.proofcache import cached_stwo_proof
 from test_torch_fri import _emulated_launch
 from test_torch_verifier import MASK_KEYS
@@ -105,6 +108,17 @@ def test_tiled_through_emulated_kernels(tamper_results, monkeypatch):
     np.testing.assert_array_equal(ok.numpy(), tamper_results["port"][0])
     for k, v in masks.items():
         np.testing.assert_array_equal(v.numpy(), tamper_results["port"][1][k], err_msg=k)
+
+
+def test_stream_tiled_equals_jax(tamper_results):
+    """The numpy tamper batch through the port's stream, laid out by
+    ``tiled.relayout`` as ``tile_batch`` lays it out: JAX's bitmap."""
+    batch = tamper_batch(cached_stwo_proof(TESTING), 1 + TESTING.n_inner_layers)
+    stream = StreamVerifier(lambda b: TV.verify_batch_tiled(b, TESTING), device="cpu",
+                            layout=functools.partial(TT.relayout, cfg=TESTING))
+    stream.feed(batch)
+    (got,) = stream.finish()
+    np.testing.assert_array_equal(got.numpy(), tamper_results["jax"][0])
 
 
 def test_entry_tiled_on_cpu():

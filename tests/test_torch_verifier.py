@@ -28,6 +28,8 @@ from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
 from stark_symphony_tpu_torch.ops import merkle as TM
 from stark_symphony_tpu_torch.ops import sha256 as TS
 from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+from stark_symphony_tpu_torch.parallel.pipeline import StreamVerifier, scan_microbatches
+from stark_symphony_tpu_torch.tools import build as TB
 from stark_symphony_tpu_torch.utils.proofcache import cached_stwo_proof
 from chip_smoke import PROD_TAMPERS, tamper_batch
 import test_pow_production
@@ -108,6 +110,44 @@ def test_verify_through_the_kernel_wrappers(results, monkeypatch):
     for k in jmasks:
         np.testing.assert_array_equal(masks[k].numpy(), jmasks[k], err_msg=k)
     np.testing.assert_array_equal(ok.numpy(), jok)
+
+
+def test_scan_microbatches_equals_jax(results):
+    """The own TESTING tamper batch in two micro-batches of 8 lanes, one
+    graphed verifier (on the CPU: its copy-in, call and copy-out) for both:
+    JAX's accept bitmap."""
+    batch = tamper_batch(cached_stwo_proof(TESTING), 1 + TESTING.n_inner_layers)
+    got = scan_microbatches(lambda b: TV.verify_batch(b, TESTING), TP.to_torch(batch), 8)
+    np.testing.assert_array_equal(got.numpy(), results["own_reference"]["jax"][0])
+
+
+def test_make_chained_equals_jax(results):
+    """Two chained verifications of the own TESTING tamper batch (standard
+    path), seeded with ones, through the graphed object (on the CPU: its
+    copy-in, call and copy-out): lane 0 is accepted, so the runtime zero
+    leaves the commitments as they are, and the last bitmap is JAX's."""
+    batch = TP.to_torch(tamper_batch(cached_stwo_proof(TESTING), 1 + TESTING.n_inner_layers))
+    ones = torch.ones(16, dtype=torch.int64)
+    chained = TB.make_chained(TESTING, 2, tiled_path=False)
+    got = TB.capture(chained, (batch, ones))(batch, ones)
+    want = results["own_reference"]["jax"][0]
+    assert got.dtype == torch.int64 and want[0] and not want.all()
+    np.testing.assert_array_equal((got == 1).numpy(), want)
+
+
+def test_stream_equals_jax(results):
+    """The own TESTING tamper batch (numpy words) and its lanes reversed,
+    two host batches in flight through the port's stream: JAX's bitmaps,
+    in the order fed."""
+    batch = tamper_batch(cached_stwo_proof(TESTING), 1 + TESTING.n_inner_layers)
+    stream = StreamVerifier(lambda b: TV.verify_batch(b, TESTING), depth=2, device="cpu")
+    stream.feed(batch)
+    stream.feed(TP.map_fields(lambda x: x[::-1].copy(), batch))
+    got = stream.finish()
+    want = results["own_reference"]["jax"][0]
+    assert len(got) == 2 and stream.finish() == []
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    np.testing.assert_array_equal(got[1].numpy(), want[::-1])
 
 
 def test_tamper_classes_match_the_jax_suite():
