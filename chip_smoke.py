@@ -9,8 +9,11 @@ verifier at the PRODUCTION config, through ``entry()`` (the standard path,
 kernels K1-K3) and ``entry_tiled()`` (the tiled fast path, kernels K1, K4
 and K5); then the stark101 family at the reference configuration, its
 prover through ``prove_stark101()`` (K1, K2) and its batched verifier
-through ``entry_stark101()`` (K1, K3).  Each path's launches are counted
-from 0 just before it runs and read just after.  In phases:
+through ``entry_stark101()`` (K1, K3); then the stwo prover through
+``prove_stwo()`` (K1, K2) and routed verification of its wide_product
+proofs beside the fixtures (``parallel.expert.verify_batch_routed``, K1-K3).
+Each path's launches are counted from 0 just before it runs and read just
+after.  In phases:
 
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
       name and power limit as nvidia-smi reports them;
@@ -26,7 +29,10 @@ from 0 just before it runs and read just after.  In phases:
       shapes: K1 on 1-word messages at 4,097 lanes and on 1 lane and on
       unbatched 8-, 9- and 16-word messages, K2 on the even and odd rows of a
       tree level (read in place) at 1, 2 and 4,097 lanes, K3 at depths
-      13..4 repeated with period 20 on 4,100 lanes;
+      13..4 repeated with period 20 on 4,100 lanes; and the stwo prover's
+      shapes: K1 on 8,192 4-word leaves and K2 on every level of their
+      tree (rows in place), against plain level by level and a hashlib
+      tree, and K1 on the 4,096-lane PoW message (n = 10);
   (d) standard path: 4,096 PRODUCTION proofs (the 256 committed fixtures, 16
       times each) must all be accepted; a 16-proof batch carrying the 15
       tamper classes in lanes 1-15 must reject exactly those lanes, with every
@@ -69,7 +75,19 @@ from 0 just before it runs and read just after.  In phases:
       and instantiate seconds and the graph pool's memory, each with the
       card's name and power limit; then ``make_chained`` (chain 2), the
       stream (``parallel/pipeline.StreamVerifier``, 8 host batches) and
-      ``tools.build``'s build and ``--load --check``, each against eager.
+      ``tools.build``'s build and ``--load --check``, each against eager;
+  (i) stwo prover and routed verify: ``prove_stwo()`` at PRODUCTION,
+      unseeded and seeds 0-15, each proof equal to its committed fixture
+      in every field (a mismatch names the field and the first differing
+      index), K1 and K2 counted over each proof, equal to PATHS, the
+      seconds of the first proof and the median of the others; a
+      wide_product proof accepted by ``verify`` under its AIR and rejected
+      under wide_fibonacci (oods_cp_match alone); ``verify_batch_routed``
+      over 4,096 lanes alternating the fixtures (air_id 0) and that proof
+      (air_id 1): all accepted, all rejected with swapped ids, every mask
+      equal to the single-AIR verify of its lanes, its launches counted
+      and its batch ms; K1 and K2 at the prover's shapes compared and
+      timed as in (f); torch.profiler over one proof.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -84,6 +102,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -189,7 +208,11 @@ KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces,
 # transcript's 29 K1 hashes (genesis, 14 draws, 10 root mixes, 4 mix_u32)
 # and the two leaf batches, the trace walk and the FRI walk.
 # stark101_prove: 11 leaf batches and 26 transcript hashes on K1, one K2
-# launch a tree level (13 + 13 + 12 + ... + 4 = 98).
+# launch a tree level (13 + 13 + 12 + ... + 4 = 98).  stwo_prover (one
+# PRODUCTION proof): K1 on the trace, CP and 9 FRI leaf batches, 41
+# transcript hashes and one chunk of PoW candidates; K2 one launch a
+# level (13 + 13 + 13 + 12 + ... + 5 = 107).  routed: the standard path's
+# stwo verifier over a mixed batch.
 PATHS = {
     "standard": {"sha256_words": None, "sha256_pair": None, "merkle_walk": None,
                  "leafwalk": 0, "fri_all_layers": 0},
@@ -199,6 +222,10 @@ PATHS = {
                  "leafwalk": 0, "fri_all_layers": 0},
     "stark101_prove": {"sha256_words": 37, "sha256_pair": 98, "merkle_walk": 0,
                        "leafwalk": 0, "fri_all_layers": 0},
+    "stwo_prover": {"sha256_words": 53, "sha256_pair": 107, "merkle_walk": 0,
+                    "leafwalk": 0, "fri_all_layers": 0},
+    "routed": {"sha256_words": 61, "sha256_pair": 9, "merkle_walk": 2,
+               "leafwalk": 0, "fri_all_layers": 0},
 }
 
 # The bound of a kernel call: the larger of bytes / memory rate and integer
@@ -431,6 +458,13 @@ def batch_ms(fn, batch, runs: int = 5):
 def phase_device():
     import torch
 
+    # torch.profiler tears CUPTI down after each session and sets it up
+    # again for the next.  On the card a set-up has failed for good after
+    # the third session of a run: every later session recorded no device
+    # activity (PERF.md).  PyTorch keeps CUPTI up where its own CUDA graphs
+    # run, as this script's do; so keep it up here too, before any session.
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
+    os.environ["TEARDOWN_CUPTI"] = "0"
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script runs "
                          "the port on an NVIDIA GPU and has no CPU mode")
@@ -636,6 +670,56 @@ def phase_kernels(rng):
     log(f"K5 fri_all_layers: bit-equal to plain (ok, folded, q_out), depths "
         f"12..4, {LANES} lanes, {int(ok.sum())} of {ok.size} layer checks ok")
     return err
+
+
+def phase_prover_kernels(rng, err):
+    """(c), the stwo prover's shapes: K1 on the trace tree's 8,192 4-word
+    leaves and K2 on every level of that tree, each level's even and odd
+    rows read in place, against the plain versions level by level and
+    against a hashlib tree; K1 on the 4,096-lane PoW message (a digest
+    broadcast to every lane, then hi and lo) against plain and hashlib."""
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch.ops import merkle, sha256
+    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy, to_numpy
+
+    def compare(name, got, want, what):
+        diff = int((got - want).abs().max().item()) if got.numel() else 0
+        err[name] = max(err[name], diff)
+        check(torch.equal(got, want), f"{name} != plain ({what}), max |diff| {diff}")
+
+    leaves = _words(rng, 8192, 4)
+    digests = ck.sha256_words(from_numpy(leaves, "cuda"))
+    compare("sha256_words", digests, sha256.sha256_words_plain(from_numpy(leaves, "cuda")),
+            "trace leaves n=4, 8192 lanes")
+    host = [_hashlib_words(row) for row in leaves]
+    check(to_numpy(digests).tolist() == host, "sha256_words trace leaves != hashlib")
+    levels = merkle.build_tree(digests)  # K2 on each level's even and odd rows
+    check(len(levels) == 14, f"the trace tree has {len(levels)} levels, want 14")
+    plain = digests
+    for depth, level in enumerate(levels[1:], 1):
+        plain = sha256.sha256_pair_plain(plain[0::2], plain[1::2])
+        compare("sha256_pair", level, plain, f"trace tree level {depth}, {plain.shape[0]} lanes")
+        host = [_hashlib_words(host[2 * i] + host[2 * i + 1]) for i in range(len(host) // 2)]
+        check(to_numpy(level).tolist() == host, f"sha256_pair trace tree level {depth} != hashlib")
+    log("K1/K2 at the stwo prover's trace tree: 8,192 4-word leaves and all 13 levels "
+        "(4,096 to 1 lanes, rows in place) bit-equal to plain and to a hashlib tree")
+
+    digest = _words(rng, 8)
+    nonces = np.arange(4096, dtype=np.uint32) + np.uint32(1 << 20)
+    lo = from_numpy(nonces, "cuda")[:, None]
+    msg = torch.cat([from_numpy(digest, "cuda").expand(4096, 8),
+                     torch.full_like(lo, 7), lo], dim=-1)
+    got = ck.sha256_words(msg)
+    compare("sha256_words", got, sha256.sha256_words_plain(msg), "PoW n=10, 4096 lanes")
+    host = to_numpy(got)
+    for lane in (0, 1, 2048, 4095):
+        check(list(host[lane]) == _hashlib_words(list(digest) + [7, int(nonces[lane])]),
+              f"sha256_words PoW lane {lane} != hashlib")
+    log("K1 at the stwo prover's PoW message: n=10 (digest, hi, lo) at 4,096 lanes "
+        "bit-equal to plain and hashlib")
 
 
 def phase_slice(proofs):
@@ -971,7 +1055,7 @@ def time_cases(cases, err):
         calls.append((name, lambda f=kern[name], a=kargs: f(*a)))
         rows.append([name, what, k_ms, p_ms, b_ms, b_by, compr])
         log(f"time {name} [{what}]: bit-equal; kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.3f} ms ({p_ms / k_ms:.1f}x); bound {b_ms:.4f} ms by {b_by}; "
+            f"{p_ms:.3f} ms ({p_ms / k_ms:.1f}x); bound {b_ms:.6f} ms by {b_by}; "
             f"{compr} compressions, {compr / (k_ms / 1e3) / 1e9:.2f} G/s")
     for row, ms in zip(rows, one_kernel_each(calls)):
         row.append(ms)
@@ -990,11 +1074,14 @@ def _device_events(prof) -> list:
 def _profiled(fn, complete):
     """torch.profiler over fn(), taken again, up to three times in all,
     while complete(profile) is false: on the card the profiler has been
-    seen to miss a kernel now and then (PERF.md)."""
+    seen to miss a kernel now and then (PERF.md).  Each retry is logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for attempt in range(3):
+        if attempt:
+            log(f"profiler: session {attempt} incomplete ({len(_device_events(prof))} device "
+                "activities); taking it again")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -1126,7 +1213,7 @@ def phase_profile(path, fn, batch, slice_ms):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile {path}: device busy {busy_ms:.1f} ms in "
         f"{sum(e.count for e in kernels)} launches, "
-        f"{100 * busy_ms / slice_ms:.1f} % of the {slice_ms:.1f} ms batch")
+        f"{100 * busy_ms / slice_ms:.1f} % of the {slice_ms:.1f} ms unprofiled run")
     mine = ours(events)
     short = []
     for name, (_, _, _, fn_name) in KERNELS.items():
@@ -1355,6 +1442,173 @@ def phase_graphs(proofs) -> dict:
     return graphed
 
 
+def first_difference(got, want):
+    """(field, index) of the first word where two numpy stwo proofs differ,
+    or None where they are equal in every field."""
+    import numpy as np
+
+    for name in want._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        if isinstance(w, tuple) and len(g) != len(w):
+            return name, f"{len(g)} arrays, want {len(w)}"
+        pairs = zip(g, w) if isinstance(w, tuple) else [(g, w)]
+        for i, (a, b) in enumerate(pairs):
+            label = f"{name}[{i}]" if isinstance(w, tuple) else name
+            a, b = np.asarray(a), np.asarray(b)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                return label, f"{a.dtype}{a.shape}, want {b.dtype}{b.shape}"
+            diff = np.flatnonzero(a.reshape(-1) != b.reshape(-1))
+            if diff.size:
+                return label, tuple(int(k) for k in np.unravel_index(diff[0], a.shape))
+    return None
+
+
+def launch_bound(name, args) -> float:
+    """bound() in ms of one K1 or K2 launch made with launcher arguments
+    `args`: its lanes' messages (or digests) read once, digests written."""
+    import torch
+
+    if name == "sha256_words":
+        _, out, n, lanes, _ = args
+        return bound(name, [torch.empty((lanes, n), dtype=torch.int64, device="meta")], [out])[0]
+    out = args[2]
+    return bound(name, [out, out], [out])[0]
+
+
+def phase_stwo_prover(proofs):
+    """(i): the stwo prover and routed verification on the card.
+
+    ``prove_stwo()`` at PRODUCTION, unseeded and seeds 0-15: each proof
+    equal to its committed fixture in every field, word for word (a
+    mismatch names the field and the first differing index); the first
+    call (host tables included) and the median of the others by the host
+    clock; K1 and K2 counted from 0 over each proof, equal to PATHS and
+    the same for every proof, with the bound of that proof's launches.
+    Then a PRODUCTION wide_product proof: verify accepts it under
+    wide_product and rejects it under wide_fibonacci, oods_cp_match
+    false.  Then verify_batch_routed over 4,096 lanes alternating the
+    committed fixtures (air_id 0) with copies of that proof (air_id 1):
+    every lane accepted, every lane rejected with the ids swapped, every
+    mask equal to the single-AIR verify of its lanes, the batch timed with
+    CUDA events.  Returns (launch counts by path, the median ms of a
+    proof)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import verifier
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+    from stark_symphony_tpu_torch.ops.cuda import build
+    from stark_symphony_tpu_torch.parallel.expert import verify_batch_routed
+    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
+
+    counts, seconds = {}, []
+    record = []
+    launch = build.launch
+
+    def recording(name, device, *args):
+        record.append((name, launch_bound(name, args)))
+        launch(name, device, *args)
+
+    build.launch = recording
+    try:
+        for seed in [None] + list(range(16)):
+            record.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            proof, _ = E.prove_stwo(PRODUCTION, seed)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            want = P.load_npz(str(fixture_path(PRODUCTION, seed)))
+            diff = first_difference(proof, want)
+            check(diff is None, f"stwo proof (PRODUCTION, seed {seed}) made on the card: "
+                  f"{diff and diff[0]} differs from the fixture first at index "
+                  f"{diff and diff[1]}")
+            made = launch_counts()
+            check(made == counts.get("stwo_prover", made),
+                  f"stwo prover: seed {seed} launched {made}, seed None {counts.get('stwo_prover')}")
+            counts["stwo_prover"] = made
+    finally:
+        build.launch = launch
+    check_counts("stwo_prover", counts["stwo_prover"])
+    bounds = {n: sum(b for k, b in record if k == n) for n in ("sha256_words", "sha256_pair")}
+    steady = statistics.median(seconds[1:])
+    log(f"stwo prover: PRODUCTION unseeded and seeds 0-15 made on the card, each equal "
+        f"to its fixture in every field; one proof {seconds[0]:.3f} s (first call, host "
+        f"tables included), median {steady:.4f} s of the next {len(seconds) - 1} "
+        f"({min(seconds[1:]):.4f}-{max(seconds[1:]):.4f} s; host clock, synchronized); "
+        f"launches a proof {counts['stwo_prover']}; their bound K1 "
+        f"{bounds['sha256_words']:.6f} ms, K2 {bounds['sha256_pair']:.6f} ms [{CARD}]")
+
+    product, _ = E.prove_stwo(PRODUCTION, air="wide_product")
+    one = P.to_torch(P.stack([product]), "cuda")
+    ok_p, _ = verifier.verify(one, PRODUCTION, "wide_product")
+    ok_f, masks_f = verifier.verify(one, PRODUCTION, "wide_fibonacci")
+    check(bool(ok_p.item()), "the wide_product proof is rejected under wide_product")
+    check(not ok_f.item() and not masks_f["oods_cp_match"].item()
+          and all(m.item() for k, m in masks_f.items() if k != "oods_cp_match"),
+          "the wide_product proof under wide_fibonacci: want oods_cp_match alone false")
+    log("stwo prover: a PRODUCTION wide_product proof made on the card is accepted "
+        "under wide_product and rejected under wide_fibonacci by oods_cp_match alone")
+
+    half = N_PROOFS // 2
+    mixed = P.map_fields(lambda f, p: np.stack([f, p], 1).reshape((N_PROOFS,) + f.shape[1:]),
+                         E.production_batch(half, proofs), P.replicate(product, half))
+    batch = P.to_torch(mixed, "cuda")
+    ids = torch.arange(N_PROOFS, device=batch.commitments.device) % 2
+    reset_counts()
+    torch.cuda.synchronize()
+    ok, masks = verify_batch_routed(batch, ids, PRODUCTION, with_masks=True)
+    torch.cuda.synchronize()
+    counts["routed"] = launch_counts()
+    check_counts("routed", counts["routed"])
+    check(bool(ok.all().item()), f"routed: {int((~ok).sum())} of {N_PROOFS} lanes rejected")
+    bad = verify_batch_routed(batch, 1 - ids, PRODUCTION)
+    check(not bad.any().item(), f"routed, ids swapped: {int(bad.sum())} lanes accepted")
+    single = [verifier.verify(batch, PRODUCTION, air)[1] for air in ("wide_fibonacci",
+                                                                     "wide_product")]
+    for air_id, want in enumerate(single):
+        check(list(masks) == list(want), "routed mask keys differ from verify's")
+        for k in want:
+            check(torch.equal(masks[k][air_id::2], want[k][air_id::2]),
+                  f"routed mask {k} != the single-AIR verify on air_id {air_id} lanes")
+    routed_ms, runs = batch_ms(lambda b: verify_batch_routed(b, ids, PRODUCTION), batch)
+    log(f"routed: {N_PROOFS} lanes (fixtures air_id 0, wide_product air_id 1) all "
+        f"accepted, all rejected with the ids swapped, all {len(masks)} masks equal to "
+        f"the single-AIR verify of their lanes; launches {counts['routed']}; batch "
+        f"{routed_ms:.3f} ms ({N_PROOFS / (routed_ms / 1e3):.1f} proofs/s; CUDA events, "
+        f"median of {len(runs)}: {', '.join(f'{r:.1f}' for r in runs)} ms) [{CARD}]")
+    return counts, 1e3 * steady
+
+
+def phase_prover_timings(rng, err):
+    """(f) at the stwo prover's shapes: K1 and K2 against their plain
+    versions, timed and profiled as time_cases does them."""
+    import numpy as np
+
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+
+    def words(*shape):
+        return from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint32), "cuda")
+
+    level, top = words(8192, 8), words(2, 8)
+    cases = [
+        ("sha256_words", "stwo prover trace leaves n=4, 8192 lanes", (words(8192, 4),)),
+        ("sha256_words", "stwo prover CP leaves n=16, 8192 lanes", (words(8192, 16),)),
+        ("sha256_words", "stwo prover last FRI leaves n=4, 32 lanes", (words(32, 4),)),
+        ("sha256_words", "stwo prover transcript n=16, 1 lane", (words(16),)),
+        ("sha256_words", "stwo prover PoW n=10, 4096 lanes", (words(4096, 10),)),
+        ("sha256_pair", "stwo prover tree level, every other row, 4096 lanes",
+         (level[0::2], level[1::2])),
+        ("sha256_pair", "stwo prover tree root, 1 lane", (top[0::2], top[1::2])),
+    ]
+    return time_cases(cases, err)[0]
+
+
 def main() -> int:
     phase_device()  # (a)
     sys.path.insert(0, str(ROOT))
@@ -1366,6 +1620,7 @@ def main() -> int:
     phase_build()  # (b)
     rng = np.random.default_rng(20261016)
     errs = phase_kernels(rng)  # (c)
+    phase_prover_kernels(np.random.default_rng(20261017), errs)
 
     t0 = time.perf_counter()
     proofs = E.production_proofs()
@@ -1383,6 +1638,10 @@ def main() -> int:
     phase_profile("stark101", fn_s, sb, s101_ms)
     del fn, batch, fn_t, tb, fn_s, sb
     counts.update(phase_graphs(proofs))  # (h)
+    prover_counts, prove_ms = phase_stwo_prover(proofs)  # (i)
+    counts.update(prover_counts)
+    phase_prover_timings(rng, errs)
+    phase_profile("stwo_prover", lambda _: E.prove_stwo(), None, prove_ms)
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:

@@ -14,7 +14,8 @@ the same over the fast path: the batch is tiled once at ingestion
 device every SHA-256, Merkle and fused-stage call of either path runs in
 the kernels of ``ops/cuda``.  ``entry_stark101()`` is the same for the
 batched stark101 verifier, and ``prove_stark101()`` runs the stark101
-prover.
+prover; ``prove_stwo()`` runs the stwo prover on the trace of a proof
+cache entry.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from .models.stark101 import prover as prover101
 from .models.stark101 import verifier as verifier101
 from .models.stark101.config import Stark101Config
 from .models.stwo import proof as P
-from .models.stwo import tiled, verifier
+from .models.stwo import prover, tiled, verifier
 from .models.stwo.config import PRODUCTION
 from .tools.build import capture
 from .utils.proofcache import cached_stwo_proof
@@ -109,3 +110,10 @@ def prove_stark101(device: str = "cuda"):
     """The stark101 prover at the reference configuration on `device`:
     (Stark101Proof of numpy words, {"idx": the query index})."""
     return prover101.prove(Stark101Config(), device=device)
+
+
+def prove_stwo(cfg=PRODUCTION, seed=None, air: str = "wide_fibonacci", device: str = "cuda"):
+    """The stwo prover on `device`, on the trace of the proof cache's (cfg,
+    seed, air) entry (``prover.seeded_trace``): (StwoProof of numpy words,
+    {})."""
+    return prover.prove(cfg, prover.seeded_trace(cfg, seed, air), air, device)

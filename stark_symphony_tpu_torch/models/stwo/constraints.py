@@ -1,8 +1,12 @@
-"""AIR constraint evaluation for the stwo verifier.
+"""AIR constraint sets of the stwo prover and verifier.
 
-Port of ``stark_symphony_tpu/models/stwo/constraints.py`` (verifier side):
-an AIR is a function ``(log_size, oods_point, oods_trace, coeff)`` that
-returns the composition polynomial's value at the OODS point.
+Port of ``stark_symphony_tpu/models/stwo/constraints.py``: an AIR is a
+function ``(log_size, oods_point, oods_trace, coeff)`` that returns the
+composition polynomial's value at the OODS point (``REGISTRY``), plus its
+trace recurrence (``TRACE_RULES``, Python ints mod P, for the prover's
+trace) and its M31 rule on LDE values (``lde_rule``, for the prover's
+composition polynomial).  ``AIR_IDS`` orders the AIRs for routed
+verification: a proof's ``air_id`` indexes it.
 """
 
 from __future__ import annotations
@@ -45,3 +49,21 @@ REGISTRY = {
     "wide_fibonacci": wide_fibonacci,
     "wide_product": wide_product,
 }
+
+# AIR order for routed verification: air_id indexes this.
+AIR_IDS = ("wide_fibonacci", "wide_product")
+
+# Trace recurrences (Python ints mod P), keyed as REGISTRY.
+TRACE_RULES = {
+    "wide_fibonacci": lambda a, b: (a * a + b * b),
+    "wide_product": lambda a, b: (a * b),
+}
+
+
+def lde_rule(air: str):
+    """The M31 constraint rule on LDE values, for the prover."""
+    if air == "wide_fibonacci":
+        return lambda a, b: F.m31_add(F.m31_sqr(a), F.m31_sqr(b))
+    if air == "wide_product":
+        return lambda a, b: F.m31_mul(a, b)
+    raise KeyError(air)

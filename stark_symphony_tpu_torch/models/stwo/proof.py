@@ -3,6 +3,7 @@
 Port of ``stark_symphony_tpu/models/stwo/proof.py``.  ``parse``,
 ``load_json`` and ``load_npz`` use numpy alone and read the same JSON
 schema and npz format, so the committed fixtures load unchanged.
+``save_npz`` writes the npz format that both packages' ``load_npz`` read.
 ``to_torch`` turns a proof of numpy uint32 arrays (this package's or the
 JAX package's ``StwoProof``) into one of int64 word tensors on a device.
 
@@ -144,6 +145,21 @@ def parse(data: dict) -> Tuple[StwoProof, StwoConfig]:
         pow_nonce=pow_nonce,
     )
     return proof, cfg
+
+
+def save_npz(path: str, proof: StwoProof) -> None:
+    """Write a proof of numpy arrays to .npz: a tuple field becomes
+    ``{name}__n`` (its length) and ``{name}__{i}`` keys, as the JAX
+    package writes it."""
+    arrays = {}
+    for name, val in proof._asdict().items():
+        if isinstance(val, tuple):
+            arrays[f"{name}__n"] = np.array(len(val))
+            for i, a in enumerate(val):
+                arrays[f"{name}__{i}"] = np.asarray(a)
+        else:
+            arrays[name] = np.asarray(val)
+    np.savez(path, **arrays)
 
 
 def load_npz(path: str) -> StwoProof:

@@ -2,9 +2,10 @@
 
 Port of ``stark_symphony_tpu/models/stwo/verifier.py``:
 commit -> OODS -> FRI commit -> PoW -> decommit -> DEEP quotients -> FRI.
-``verify`` is the standard path; ``verify_batch_tiled`` the fast path over
-a tiled batch (``tiled.tile_batch``), whose stages V and VII run fused
-(``ops/fri.py``).
+``verify`` is the standard path, for one AIR or for a batch routed over
+several (``air`` a tuple, ``air_id`` per proof); ``verify_batch_tiled``
+the fast path over a tiled batch (``tiled.tile_batch``) of one AIR, whose
+stages V and VII run fused (``ops/fri.py``).
 Every function is polymorphic over an optional leading proof-batch axis,
 so ``verify`` on stacked (B, ...) tensors checks the whole batch at once:
 SHA-256 and Merkle calls see B*Q lanes, and on a CUDA device they run in
@@ -31,7 +32,7 @@ from ...ops.circle import (
     query_point_table_on,
 )
 from ...ops.sha256 import sha256_pair, sha256_words
-from ...ops.u32 import bit_reverse, byte_swap32, const, from_i32, lt64, to_i32
+from ...ops.u32 import M32, bit_reverse, byte_swap32, const, from_i32, lt64, to_i32
 from . import channel as ch
 from .config import StwoConfig
 from .constraints import REGISTRY
@@ -85,13 +86,13 @@ def deep_denominator_inverse(oods_point, query_points):
 
 
 def deep_interpolant_coefficients(oods_point, sample_value, alpha_i):
-    """(a, b, c) of the complex-conjugate line interpolant, scaled by alpha^i."""
+    """(a, b, c) of the complex-conjugate line interpolant, scaled by alpha^i
+    (sample values and alphas may carry batch axes of their own)."""
     py = qm31_point_y(oods_point)
     im_py = py[..., 2:4]
     im_val = sample_value[..., 2:4]
-    zero = torch.zeros_like(im_val)
-    a = torch.cat([zero, F.cm31_neg(F.cm31_add(im_val, im_val))], dim=-1)
-    b = torch.cat([zero, F.cm31_neg(F.cm31_add(im_py, im_py))], dim=-1)
+    a = torch.cat([torch.zeros_like(im_val), F.cm31_neg(F.cm31_add(im_val, im_val))], dim=-1)
+    b = torch.cat([torch.zeros_like(im_py), F.cm31_neg(F.cm31_add(im_py, im_py))], dim=-1)
     c = F.qm31_sub(F.qm31_mul(b, sample_value), F.qm31_mul(a, py))
     return F.qm31_mul(alpha_i, a), F.qm31_mul(alpha_i, b), F.qm31_mul(alpha_i, c)
 
@@ -282,18 +283,47 @@ def _stages_i_to_iv(proof, cfg: StwoConfig, eval_cp, masks):
     return queries, cp_alpha, oods_point, deep_alpha, fri_alphas
 
 
-def verify(proof, cfg: StwoConfig, air: str = "wide_fibonacci",
-           linkage: str = "reference"):
+def _routed(airs, air_id):
+    """The composition check of routed AIRs: every AIR in `airs` evaluated
+    on the whole batch, then each lane's value selected by its air_id
+    (dense dispatch).  As JAX's ``take`` does, a negative id counts from
+    the end and an id out of range selects the value 2^32 - 1 in every
+    coordinate, which no composition value equals."""
+    branches = [REGISTRY[name] for name in airs]
+
+    def eval_cp(*args):
+        values = torch.stack([f(*args) for f in branches])  # (n_airs, ..., 4)
+        n = len(branches)
+        ids = air_id.to(values.device, torch.int64)
+        ids = torch.where(ids < 0, ids + n, ids)
+        inside = (ids >= 0) & (ids < n)
+        index = torch.where(inside, ids, 0).reshape((1,) + ids.shape + (1,))
+        picked = torch.gather(values, 0, index.expand((1,) + values.shape[1:]))[0]
+        return torch.where(inside[..., None], picked, M32)
+
+    return eval_cp
+
+
+def verify(proof, cfg: StwoConfig, air="wide_fibonacci",
+           linkage: str = "reference", air_id=None):
     """Verify one proof, or a stacked batch; returns (ok, masks).
 
     `proof` holds int64 word tensors (``proof.to_torch``), all on one
-    device.  linkage 'reference' feeds the stage-VI DEEP quotients into the
+    device.  `air` names an AIR of ``constraints.REGISTRY``, or is a tuple
+    of names: then `air_id` (a tensor of the batch shape) gives each
+    proof's index into it, and each lane's composition check uses its own
+    AIR.  linkage 'reference' feeds the stage-VI DEEP quotients into the
     FRI walk; 'unfold' starts the walk from the values recovered by
     unfolding the FRI chain backward (stage VI is computed, not enforced).
     """
     if linkage not in LINKAGES:
         raise ValueError(f"linkage must be one of {LINKAGES}, not {linkage!r}")
-    eval_cp = REGISTRY[air]
+    if isinstance(air, (tuple, list)):
+        if air_id is None:
+            raise ValueError("routed AIRs need a per-proof air_id")
+        eval_cp = _routed(air, air_id)
+    else:
+        eval_cp = REGISTRY[air]
 
     masks = {}
     queries, cp_alpha, oods_point, deep_alpha, fri_alphas = _stages_i_to_iv(
@@ -373,10 +403,11 @@ def verify(proof, cfg: StwoConfig, air: str = "wide_fibonacci",
     return ok_all, masks
 
 
-def verify_batch(proof_batch, cfg: StwoConfig, air: str = "wide_fibonacci",
-                 linkage: str = "reference"):
-    """Verify a stacked proof batch; returns the accept bitmap (B,)."""
-    return verify(proof_batch, cfg, air, linkage)[0]
+def verify_batch(proof_batch, cfg: StwoConfig, air="wide_fibonacci",
+                 linkage: str = "reference", air_id=None):
+    """Verify a stacked proof batch; returns the accept bitmap (B,).  `air`
+    and `air_id` as in verify."""
+    return verify(proof_batch, cfg, air, linkage, air_id)[0]
 
 
 def _i32(x):

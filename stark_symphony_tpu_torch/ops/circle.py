@@ -1,10 +1,12 @@
-"""Circle group over M31: the parts of ``stark_symphony_tpu/ops/circle.py``
-that the verifier uses.
+"""Circle group over M31 and circle/line domains.
 
-Points are a trailing axis of size 2, [x, y]; QM31 circle points (OODS
-points) a trailing (2, 4) = (x|y, qm31 coordinates).  Query points come
-from a host table (``query_point_table``) up to 2^20 and from the 31-step
-scalar multiplication (``circle_position_to_point``) above it.
+Port of ``stark_symphony_tpu/ops/circle.py``.  Points are a trailing axis
+of size 2, [x, y]; QM31 circle points (OODS points) a trailing (2, 4) =
+(x|y, qm31 coordinates).  Query points come from a host table
+(``query_point_table``) up to 2^20 and from the 31-step scalar
+multiplication (``circle_position_to_point``) above it.  Domains are
+small named tuples of Python ints: they parameterize the code and never
+live on a device.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from . import field as F
-from .u32 import M32, const
+from .u32 import M32, bit_reverse, const
 
 M31_CIRCLE_GEN = (2, 1268011823)
 M31_CIRCLE_LOG_ORDER = 31
@@ -51,6 +53,18 @@ def point_add(p, q):
     x = F.m31_sub(F.m31_mul(x0, x1), F.m31_mul(y0, y1))
     y = F.m31_add(F.m31_mul(x0, y1), F.m31_mul(y0, x1))
     return torch.stack([x, y], dim=-1)
+
+
+def point_neg(p):
+    return torch.stack([p[..., 0], F.m31_neg(p[..., 1])], dim=-1)
+
+
+def point_dbl(p):
+    x, y = p[..., 0], p[..., 1]
+    x2 = F.m31_sqr(x)
+    xd = F.m31_sub(F.m31_add(x2, x2), torch.ones_like(x))
+    xy = F.m31_mul(x, y)
+    return torch.stack([xd, F.m31_add(xy, xy)], dim=-1)
 
 
 def point_from_index(index):
@@ -101,6 +115,20 @@ class CircleDomain(NamedTuple):
     @property
     def step(self) -> int:
         return subgroup_gen_index(self.log_size - 1)
+
+
+class LineDomain(NamedTuple):
+    """x-coordinates of a half-coset of size 2^log_size."""
+
+    log_size: int
+
+    @property
+    def offset(self) -> int:
+        return subgroup_gen_index(self.log_size + 2)
+
+    @property
+    def step(self) -> int:
+        return subgroup_gen_index(self.log_size)
 
 
 def circle_position_to_index(domain: CircleDomain, position):
@@ -155,12 +183,33 @@ def query_point_table_on(log_size: int, device: str) -> torch.Tensor:
     return torch.from_numpy(query_point_table(log_size).astype(np.int64)).to(device)
 
 
+def line_position_to_x(domain: LineDomain, position):
+    idx = index_add(domain.offset, index_mul(domain.step, position))
+    return point_from_index(idx)[..., 0]
+
+
+def bit_reverse_position(position, log_size: int):
+    return bit_reverse(position, log_size)
+
+
+def qm31_point(x, y):
+    return torch.stack([x, y], dim=-2)
+
+
 def qm31_point_x(p):
     return p[..., 0, :]
 
 
 def qm31_point_y(p):
     return p[..., 1, :]
+
+
+def qm31_point_add(p, q):
+    x0, y0 = qm31_point_x(p), qm31_point_y(p)
+    x1, y1 = qm31_point_x(q), qm31_point_y(q)
+    x = F.qm31_sub(F.qm31_mul(x0, x1), F.qm31_mul(y0, y1))
+    y = F.qm31_add(F.qm31_mul(x0, y1), F.qm31_mul(y0, x1))
+    return qm31_point(x, y)
 
 
 def vanishing_poly_eval(log_size: int, point):
