@@ -11,9 +11,12 @@ and K5); then the stark101 family at the reference configuration, its
 prover through ``prove_stark101()`` (K1, K2) and its batched verifier
 through ``entry_stark101()`` (K1, K3); then the stwo prover through
 ``prove_stwo()`` (K1, K2) and routed verification of its wide_product
-proofs beside the fixtures (``parallel.expert.verify_batch_routed``, K1-K3).
-Each path's launches are counted from 0 just before it runs and read just
-after.  In phases:
+proofs beside the fixtures (``parallel.expert.verify_batch_routed``, K1-K3);
+then the sharded layer on 8 shards of one card: DP, TP and routed
+verification (K1-K3 in every shard), the domain-sharded FRI fold and
+commit, the sharded prover through ``prove_stwo_sharded()`` (K1, K2) and
+two processes counting one batch.  Each path's launches are counted from 0
+just before it runs and read just after.  In phases:
 
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
       name and power limit as nvidia-smi reports them;
@@ -87,7 +90,27 @@ after.  In phases:
       (air_id 1): all accepted, all rejected with swapped ids, every mask
       equal to the single-AIR verify of its lanes, its launches counted
       and its batch ms; K1 and K2 at the prover's shapes compared and
-      timed as in (f); torch.profiler over one proof.
+      timed as in (f); torch.profiler over one proof;
+  (j) the sharded layer, 8 shards on cuda:0 (``phase_parallel``):
+      ``verify_batch_dp`` over the 4,096-lane batch with the tamper classes
+      in lanes 1-15, equal to the unsharded ``verify`` in the bitmap and
+      every stage's mask (4,081 accepted); ``verify_batch_tp`` and the
+      GSPMD counterpart at dp2 x tp4 on 512 of those lanes, likewise; K3
+      at a TP shard's FRI walk (256 proofs x 9 layers x 4 queries, depth
+      period 36) against plain and hashlib; ``verify_batch_routed_sharded`` on phase (i)'s
+      routed batch, equal to ``verify_batch_routed``; the stwo fold and
+      commit (every level) at lde 13 and 18 and the stark101 fold at 8,192
+      over 10 stages, against their single-device oracles;
+      ``prove_stwo_sharded()`` at PRODUCTION s0, equal to its fixture, and
+      the lde-18 BIG proof accepted by ``verify`` and rejected with one FRI
+      witness word flipped; two processes (gloo, one card), each verifying
+      half the DP batch, both counting 4,081; ``dryrun_multichip(4)``; the
+      launches of each path equal PATHS; torch.profiler over one sharded
+      proof (device busy, K1/K2 device ms); with two or more devices
+      (``phase_multi_gpu``), the DP weak scaling efficiency over them, in
+      one process and in one process a device (nccl, each process's
+      share of the cards it sees), and TP, the SP
+      blocks and the sharded prover across them, else "not measured".
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -212,7 +235,15 @@ KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces,
 # PRODUCTION proof): K1 on the trace, CP and 9 FRI leaf batches, 41
 # transcript hashes and one chunk of PoW candidates; K2 one launch a
 # level (13 + 13 + 13 + 12 + ... + 5 = 107).  routed: the standard path's
-# stwo verifier over a mixed batch.
+# stwo verifier over a mixed batch.  dp, tp and routed_sharded (phase j):
+# that verifier once on each of 8 shards of one card (a TP shard runs the
+# whole transcript and launches as many kernels over fewer queries).
+# stwo_prover_sharded (one PRODUCTION proof over 8 shards, every FRI layer
+# of log 13..5 sharded): K1 on the trace and CP leaves, one leaf batch a
+# shard a FRI layer, the 41 transcript hashes and one PoW chunk; K2 on
+# the trace and CP trees' 13 levels each, and on a FRI layer of log n its
+# n - 3 sharded levels on the 4 shards that keep their nodes, then 3 top
+# levels on the first shard.
 PATHS = {
     "standard": {"sha256_words": None, "sha256_pair": None, "merkle_walk": None,
                  "leafwalk": 0, "fri_all_layers": 0},
@@ -226,6 +257,15 @@ PATHS = {
                     "leafwalk": 0, "fri_all_layers": 0},
     "routed": {"sha256_words": 61, "sha256_pair": 9, "merkle_walk": 2,
                "leafwalk": 0, "fri_all_layers": 0},
+    "dp": {"sha256_words": 8 * 61, "sha256_pair": 8 * 9, "merkle_walk": 8 * 2,
+           "leafwalk": 0, "fri_all_layers": 0},
+    "tp": {"sha256_words": 8 * 61, "sha256_pair": 8 * 9, "merkle_walk": 8 * 2,
+           "leafwalk": 0, "fri_all_layers": 0},
+    "routed_sharded": {"sha256_words": 8 * 61, "sha256_pair": 8 * 9, "merkle_walk": 8 * 2,
+                       "leafwalk": 0, "fri_all_layers": 0},
+    "stwo_prover_sharded": {"sha256_words": 2 + 9 * 8 + 41 + 1,
+                            "sha256_pair": 26 + sum(4 * (log - 3) + 3 for log in range(5, 14)),
+                            "merkle_walk": 0, "leafwalk": 0, "fri_all_layers": 0},
 }
 
 # The bound of a kernel call: the larger of bytes / memory rate and integer
@@ -459,10 +499,10 @@ def phase_device():
     import torch
 
     # torch.profiler tears CUPTI down after each session and sets it up
-    # again for the next.  On the card a set-up has failed for good after
-    # the third session of a run: every later session recorded no device
-    # activity (PERF.md).  PyTorch keeps CUPTI up where its own CUDA graphs
+    # again for the next.  PyTorch keeps CUPTI up where its own CUDA graphs
     # run, as this script's do; so keep it up here too, before any session.
+    # (The sessions that recorded no device activity late in a run did so
+    # with or without the teardown; _pad_session is what keeps them whole.)
     os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
     os.environ["TEARDOWN_CUPTI"] = "0"
     if not torch.cuda.is_available():
@@ -1063,11 +1103,37 @@ def time_cases(cases, err):
     return rows, calls
 
 
+# torch.profiler on the card drops device activities at the start of a
+# session, more of them the longer the process has run: ten kernels each
+# followed by a synchronize were all recorded in a fresh process and none
+# three minutes later, whether CUPTI was torn down between sessions or
+# not, and waiting a second before or after them did not help; the same
+# ten kernels after 20,000 others and a synchronize in the same session
+# were all recorded at every age (PERF.md).  So every session here
+# opens with PAD_KERNELS launches of a kernel that no path runs (cos of a
+# float), and every count and sum below leaves them out.
+PAD_KERNELS = 20_000
+
+
+def _pad_session() -> None:
+    import torch
+
+    x = torch.empty(1, device="cuda")  # no kernel: the session holds the cos launches alone
+    for _ in range(PAD_KERNELS):
+        x.cos_()
+    torch.cuda.synchronize()
+
+
+def _is_pad(name: str) -> bool:
+    return "cos_kernel" in name
+
+
 def _device_events(prof) -> list:
-    """The device activities of a torch.profiler run, in start order."""
+    """The device activities of a torch.profiler run, in start order,
+    without the session's padding."""
     from torch.autograd import DeviceType
 
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not _is_pad(e.name)]
     return sorted(dev, key=lambda e: e.time_range.start)
 
 
@@ -1083,6 +1149,7 @@ def _profiled(fn, complete):
             log(f"profiler: session {attempt} incomplete ({len(_device_events(prof))} device "
                 "activities); taking it again")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _pad_session()
             fn()
             torch.cuda.synchronize()
         if complete(prof):
@@ -1156,7 +1223,8 @@ def _locate_missed(path, prof, record, short) -> None:
         return
     finally:
         trace.unlink(missing_ok=True)
-    dev = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    dev = sorted((e for e in events if e.get("cat") == "kernel" and not _is_pad(e["name"])),
+                 key=lambda e: e["ts"])
     log(f"profile {path}: the trace's first device activities: "
         f"{[e['name'][:40] for e in dev[:3]]}")
     for name, fn_name in short:
@@ -1208,8 +1276,9 @@ def phase_profile(path, fn, batch, slice_ms):
         build.launch = launch
     events = prof.key_averages()
     log(events.table(sort_by="self_cuda_time_total", row_limit=15))
-    # device-side rows only: an operator's row repeats its kernels' time
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # device-side rows only: an operator's row repeats its kernels' time;
+    # the cos rows are the session's padding (_pad_session)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not _is_pad(e.key)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile {path}: device busy {busy_ms:.1f} ms in "
         f"{sum(e.count for e in kernels)} launches, "
@@ -1245,12 +1314,14 @@ def graph_profile(path, fn, batch) -> float:
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _pad_session()
         start.record()
         fn(batch)
         end.record()
         torch.cuda.synchronize()
     call_ms = start.elapsed_time(end)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not _is_pad(e.key)]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     seen = {w: sum(e.count for e in dev if f"stpu::{w}(" in e.key)
             for _, _, _, w in KERNELS.values()}
@@ -1491,7 +1562,7 @@ def phase_stwo_prover(proofs):
     every lane accepted, every lane rejected with the ids swapped, every
     mask equal to the single-AIR verify of its lanes, the batch timed with
     CUDA events.  Returns (launch counts by path, the median ms of a
-    proof)."""
+    proof, (the routed batch as numpy, its air_ids, its bitmap))."""
     import statistics
 
     import numpy as np
@@ -1582,7 +1653,7 @@ def phase_stwo_prover(proofs):
         f"the single-AIR verify of their lanes; launches {counts['routed']}; batch "
         f"{routed_ms:.3f} ms ({N_PROOFS / (routed_ms / 1e3):.1f} proofs/s; CUDA events, "
         f"median of {len(runs)}: {', '.join(f'{r:.1f}' for r in runs)} ms) [{CARD}]")
-    return counts, 1e3 * steady
+    return counts, 1e3 * steady, (mixed, ids.cpu().numpy(), ok)
 
 
 def phase_prover_timings(rng, err):
@@ -1609,7 +1680,391 @@ def phase_prover_timings(rng, err):
     return time_cases(cases, err)[0]
 
 
+# The JAX suite's big-domain configuration (tests/test_sharded_prover.py):
+# LDE 2^18, blowup 2^4 as at PRODUCTION, 14 FRI layers, 4 queries.
+BIG = dict(trace_log_size=14, lde_log_size=18, n_queries=4, n_inner_layers=13, pow_bits=5)
+SHARDS = 8
+MULTI_PROCESS_DP = """
+import sys, time
+sys.path.insert(0, {root!r})
+import torch
+from chip_smoke import PROD_TAMPERS, tamper_lanes
+from stark_symphony_tpu_torch import entry as E
+from stark_symphony_tpu_torch.models.stwo import proof as P
+from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+from stark_symphony_tpu_torch.parallel.batch import verify_batch_dp
+from stark_symphony_tpu_torch.utils import distributed as D
+
+assert D.initialize_from_env() and D.process_count() == {procs}
+batch = tamper_lanes(E.production_batch({n}), PROD_TAMPERS)
+start, size = D.local_batch_slice({n})
+local = P.map_fields(lambda x: x[start:start + size], batch)
+mesh = D.global_mesh(devices={devices!r})
+for _ in range({runs}):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bitmap, n_ok = verify_batch_dp(local, PRODUCTION, mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+print("LOCAL", int(bitmap.sum()), "GLOBAL", int(n_ok), "SECONDS", seconds, flush=True)
+"""
+
+
+def timed(fn):
+    """(fn(), seconds) by the host clock, every device synchronized before
+    and after."""
+    import torch
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def counted(path, fn):
+    """(fn(), seconds, launch counts) with the counts set to 0 just before
+    and read just after, held to PATHS[path]."""
+    reset_counts()
+    out, seconds = timed(fn)
+    made = launch_counts()
+    check_counts(path, made)
+    return out, seconds, made
+
+
+def multi_process_dp(n: int, procs: int, devices=None, runs: int = 1) -> list:
+    """`procs` processes joined by the STPU_* variables, each verifying its
+    slice of the n-lane tamper batch with verify_batch_dp over a
+    ``global_mesh`` whose dp axis spans the processes (the last of `runs`
+    calls timed): a shard on each of `devices`, by default one on each
+    card of the process's device share.  Returns each process's (backend,
+    local accepted, global accepted, seconds, its device share)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    code = MULTI_PROCESS_DP.format(root=str(ROOT), n=n, procs=procs, devices=devices,
+                                   runs=runs)
+    children = []
+    for rank in range(procs):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), STPU_COORDINATOR=f"localhost:{port}",
+                   STPU_NUM_PROCESSES=str(procs), STPU_PROCESS_ID=str(rank),
+                   STPU_INIT_TIMEOUT="300")
+        children.append(subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                                         env=env, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=600) for p in children]
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for rank, (p, (out, err)) in enumerate(zip(children, outs)):
+        check(p.returncode == 0, f"{procs}-process dp: process {rank} exited {p.returncode}: "
+              f"{out[-1000:]} {err[-3000:]}")
+        backend = out.split("backend ")[1].split(",")[0]
+        share = out.split("cuda devices ")[1].splitlines()[0]
+        words = out.split("LOCAL ")[1].split()
+        results.append((backend, int(words[0]), int(words[2]), float(words[4]), share))
+    return results
+
+
+def phase_parallel(proofs, routed, err=None):
+    """(j): the sharded layer on the card, 8 shards on cuda:0.
+
+    DP (``verify_batch_dp``) over the 4,096-lane PRODUCTION batch with the
+    15 tamper classes in lanes 1-15: the bitmap and every stage's mask of
+    the unsharded ``verify`` and 4,081 accepted.  TP (``verify_batch_tp``)
+    at dp2 x tp4 on 512 of those lanes, and the GSPMD counterpart beside
+    it: the unsharded bitmap and masks of those lanes.  K3 at a TP shard's
+    FRI walk (256 proofs x 9 layers x 4 local queries, per-path depths of
+    period 36) against plain and hashlib, its error into `err` (a dict of
+    each kernel's largest error, where given).
+    ``verify_batch_routed_sharded``
+    over phase (i)'s routed batch: its ``verify_batch_routed`` bitmap.  The
+    SP blocks at lde 13 and 18 (stwo fold and commit, every tree level) and
+    stark101's fold at 8,192 over 10 stages, bit for bit against their
+    single-device oracles.  ``prove_stwo_sharded()`` at PRODUCTION s0: its
+    fixture, word for word; the lde-18 BIG proof accepted by the standard
+    verify and rejected with one FRI witness word flipped.  Two processes
+    verifying half the DP batch each: 4,081 in both.  The entry point's dry
+    run over 4 shards.  Each path's launches counted from 0 and held to PATHS;
+    each time by the host clock with the device synchronized.  Returns (the
+    launch counts by path, the median ms of a sharded proof)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import verifier
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, StwoConfig
+    from stark_symphony_tpu_torch.models.stwo.prover import _commit_leaves
+    from stark_symphony_tpu_torch.ops import field101 as F101
+    from stark_symphony_tpu_torch.ops import merkle
+    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+    from stark_symphony_tpu_torch.ops.field import P as M31P
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy, to_numpy
+    from stark_symphony_tpu_torch.parallel import fri_shard as FS
+    from stark_symphony_tpu_torch.parallel.batch import (
+        make_mesh,
+        verify_batch_dp,
+        verify_batch_gspmd,
+        verify_batch_tp,
+    )
+    from stark_symphony_tpu_torch.parallel.expert import verify_batch_routed_sharded
+    from stark_symphony_tpu_torch.parallel.mesh import Mesh, unshard
+    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
+
+    counts = {}
+    card = ["cuda:0"] * SHARDS
+    n_bad = len(PROD_TAMPERS)
+    batch = tamper_lanes(E.production_batch(N_PROOFS, proofs), PROD_TAMPERS)
+    (want, want_masks), ref_s = timed(
+        lambda: verifier.verify(P.to_torch(batch, "cuda"), PRODUCTION))
+    check(not want[1:1 + n_bad].any() and want[0] and want[1 + n_bad:].all(),
+          "unsharded verify of the tamper batch: want lanes 1-15 alone rejected")
+
+    def same_masks(masks, lanes):
+        return list(masks) == list(want_masks) and all(
+            torch.equal(m, want_masks[k][lanes]) for k, m in masks.items())
+
+    (bitmap, n_ok, masks), dp_s, counts["dp"] = counted(
+        "dp", lambda: verify_batch_dp(batch, PRODUCTION, make_mesh(SHARDS, devices=card),
+                                      with_masks=True))
+    check(torch.equal(bitmap, want), "dp bitmap != the unsharded verify")
+    check(same_masks(masks, slice(None)), "dp masks != the unsharded verify's")
+    check(int(n_ok) == N_PROOFS - n_bad, f"dp: {int(n_ok)} accepted, want {N_PROOFS - n_bad}")
+    log(f"dp: verify_batch_dp over {SHARDS} shards on cuda:0, {N_PROOFS} lanes with the "
+        f"{n_bad} tamper classes in lanes 1-{n_bad}: bitmap and all {len(masks)} masks "
+        f"equal to verify, {int(n_ok)} accepted; {dp_s:.3f} s with its ingestion "
+        f"(unsharded verify with to_torch {ref_s:.3f} s); launches {counts['dp']} [{CARD}]")
+
+    n_tp = 512
+    sub = P.map_fields(lambda x: x[:n_tp], batch)
+    tp_mesh = make_mesh(SHARDS, tp=4, devices=card)
+    for name, fn in (("tp", verify_batch_tp), ("gspmd", verify_batch_gspmd)):
+        (bitmap, n_ok, masks), secs, made = counted(
+            "tp", lambda fn=fn: fn(sub, PRODUCTION, tp_mesh, with_masks=True))
+        counts.setdefault("tp", made)
+        check(torch.equal(bitmap, want[:n_tp]) and int(n_ok) == int(want[:n_tp].sum()),
+              f"{name} at dp2 x tp4: bitmap or count != the unsharded verify")
+        check(same_masks(masks, slice(0, n_tp)),
+              f"{name} at dp2 x tp4: masks != the unsharded verify's")
+        log(f"{name}: dp2 x tp4 on cuda:0, {n_tp} lanes: bitmap and all {len(masks)} masks "
+            f"(each the AND of its 4 query shards') equal to verify, {int(n_ok)} accepted; "
+            f"{secs:.3f} s with its ingestion; launches {made} [{CARD}]")
+
+    # K3 at a TP shard's FRI walk: a dp shard's 256 proofs x (9 layers x 4
+    # local queries), the depths of a layer repeated a query: period 36
+    rng = np.random.default_rng(20261018)
+    n_local = PRODUCTION.n_queries // tp_mesh.shape["tp"]
+    depths = np.repeat([PRODUCTION.fri_layer_depth(l)
+                        for l in range(1 + PRODUCTION.n_inner_layers)], n_local)
+    bshape, top = (n_tp // tp_mesh.shape["dp"], depths.size), int(depths.max())
+    leaf, sibs = _words(rng, *bshape, 8), _words(rng, *bshape, top, 8)
+    idx = rng.integers(0, 1 << top, bshape, dtype=np.uint32)
+    args = (from_numpy(leaf, "cuda"), from_numpy(idx, "cuda"), from_numpy(sibs, "cuda"))
+    got = ck.merkle_compute_root(*args, depths)
+    plain = merkle.compute_root_plain(*args, depths)
+    err = {} if err is None else err
+    err["merkle_walk"] = max(err.get("merkle_walk", 0), int((got - plain).abs().max().item()))
+    check(torch.equal(got, plain), "merkle_walk at a TP shard's FRI walk != plain")
+    host, lanes = to_numpy(got).reshape(-1, 8), leaf.size // 8
+    for lane in (0, 1, depths.size - 1, lanes // 2, lanes - 1):
+        check(list(host[lane]) == _hashlib_root(leaf.reshape(-1, 8)[lane],
+                                                int(idx.reshape(-1)[lane]),
+                                                sibs.reshape(-1, top, 8)[lane],
+                                                int(depths[lane % depths.size])),
+              f"merkle_walk at a TP shard's FRI walk, lane {lane} != hashlib")
+    log(f"K3 merkle_walk at a TP shard's FRI walk ({bshape[0]} proofs x {depths.size} paths, "
+        f"depths {top}..{int(depths.min())}, period {depths.size}): bit-equal to plain and "
+        f"hashlib")
+
+    mixed, air_ids, routed_ok = routed
+    (bitmap, n_ok), secs, counts["routed_sharded"] = counted(
+        "routed_sharded", lambda: verify_batch_routed_sharded(
+            mixed, air_ids, PRODUCTION, make_mesh(SHARDS, devices=card)))
+    check(torch.equal(bitmap, routed_ok) and int(n_ok) == int(routed_ok.sum()),
+          "verify_batch_routed_sharded != verify_batch_routed")
+    log(f"routed_sharded: {N_PROOFS} routed lanes over {SHARDS} shards: bitmap equal to "
+        f"verify_batch_routed, {int(n_ok)} accepted; {secs:.3f} s with its ingestion; "
+        f"launches {counts['routed_sharded']} [{CARD}]")
+
+    sp = Mesh(card, ("sp",))
+    for lde_log, stages in ((13, 9), (18, 14)):
+        vals = from_numpy(rng.integers(0, M31P, (1 << lde_log, 4), dtype=np.uint32), "cuda")
+        alphas = [from_numpy(rng.integers(0, M31P, 4, dtype=np.uint32), "cuda")
+                  for _ in range(stages)]
+        points = FS.stwo_domain_points(lde_log)
+        folded, fold_s = timed(lambda: unshard(sp, FS.stwo_fold_sharded(
+            vals, alphas, lde_log, sp, stages), "sp"))
+        ref, ref_s = timed(lambda: FS.stwo_fold_reference(vals, points, alphas, stages))
+        check(torch.equal(folded, ref), f"stwo_fold_sharded at lde {lde_log} != the reference")
+        (root, levels), commit_s = timed(lambda: FS.stwo_commit_sharded(
+            vals, sp, return_levels=True))
+        tree = FS.natural_levels_to_tree(levels, lde_log)
+        (ref_levels, ref_root), one_s = timed(lambda: _commit_leaves(vals, lde_log))
+        check(torch.equal(root, ref_root) and len(tree) == len(ref_levels)
+              and all(torch.equal(a, b) for a, b in zip(tree, ref_levels)),
+              f"stwo_commit_sharded at lde {lde_log}: root or a level != _commit_leaves")
+        log(f"sp: lde {lde_log}, {SHARDS} shards: stwo_fold_sharded ({stages} stages) equal "
+            f"to the reference, {fold_s:.3f} s against {ref_s:.3f} s on one shard; "
+            f"stwo_commit_sharded root and all {len(tree)} levels equal to _commit_leaves, "
+            f"{commit_s:.3f} s against {one_s:.3f} s [{CARD}]")
+    n101, stages101 = 8192, 10
+    v101 = from_numpy(rng.integers(0, F101.Q, n101, dtype=np.uint64).astype(np.uint32), "cuda")
+    x101 = from_numpy(rng.integers(1, F101.Q, n101, dtype=np.uint64).astype(np.uint32), "cuda")
+    betas = [int(rng.integers(1, F101.Q)) for _ in range(stages101)]
+    (v_sh, x_sh), s101 = timed(lambda: FS.stark101_fold_sharded(v101, x101, betas, sp, stages101))
+    v_ref, x_ref = FS.stark101_fold_reference(v101, x101, betas, stages101)
+    check(torch.equal(unshard(sp, v_sh, "sp"), v_ref) and torch.equal(unshard(sp, x_sh, "sp"), x_ref),
+          "stark101_fold_sharded != the reference")
+    log(f"sp: stark101_fold_sharded at {n101} over {stages101} stages and {SHARDS} shards "
+        f"equal to the reference; {s101:.3f} s [{CARD}]")
+
+    fixture = P.load_npz(str(fixture_path(PRODUCTION, 0)))
+    seconds = []
+    for _ in range(5):
+        (proof, info), secs, made = counted(
+            "stwo_prover_sharded", lambda: E.prove_stwo_sharded(PRODUCTION, seed=0))
+        diff = first_difference(proof, fixture)
+        check(diff is None, f"sharded stwo proof (PRODUCTION, s0): {diff and diff[0]} differs "
+              f"from the fixture first at index {diff and diff[1]}")
+        check(info == {"n_sharded_layers": 1 + PRODUCTION.n_inner_layers},
+              f"sharded prover: {info}")
+        seconds.append(secs)
+    counts["stwo_prover_sharded"] = made
+    log(f"stwo_prover_sharded: prove_stwo_sharded(PRODUCTION, s0) over {SHARDS} shards, "
+        f"every FRI layer sharded, equal to its fixture in every field five times; "
+        f"{seconds[0]:.4f} s first, median {statistics.median(seconds[1:]):.4f} s of the "
+        f"next {len(seconds) - 1} ({min(seconds[1:]):.4f}-{max(seconds[1:]):.4f} s); "
+        f"launches a proof {made} [{CARD}]")
+
+    big = StwoConfig(**BIG)
+    (proof, info), big_s = timed(lambda: E.prove_stwo_sharded(big))
+    ok, masks = verifier.verify(P.to_torch(proof, "cuda"), big)
+    check(bool(ok), f"lde-18 sharded proof rejected: {[k for k, v in masks.items() if not v]}")
+    wits = tuple(w.copy() for w in proof.fri_witnesses)
+    wits[6][1, 2] ^= 1
+    ok_bad, _ = verifier.verify(P.to_torch(proof._replace(fri_witnesses=wits), "cuda"), big)
+    check(not bool(ok_bad), "lde-18 sharded proof with a flipped FRI witness accepted")
+    log(f"stwo_prover_sharded: the lde-18 BIG proof over {SHARDS} shards "
+        f"({info['n_sharded_layers']} sharded layers) in {big_s:.3f} s, host tables "
+        f"included; accepted by verify, rejected with fri_witnesses[6][1, 2] flipped [{CARD}]")
+
+    runs, two_s = timed(lambda: multi_process_dp(N_PROOFS, 2, ["cuda:0"] * 4))
+    for rank, (backend, local, total, _, _) in enumerate(runs):
+        want_local = N_PROOFS // 2 - (n_bad if rank == 0 else 0)
+        check(backend == "gloo" and local == want_local and total == N_PROOFS - n_bad,
+              f"two-process dp, process {rank}: backend {backend}, {local} of its lanes and "
+              f"{total} in all accepted, want gloo, {want_local}, {N_PROOFS - n_bad}")
+    log(f"two processes: each verify_batch_dp over 4 shards of cuda:0 on its "
+        f"{N_PROOFS // 2} lanes, gloo: both count {N_PROOFS - n_bad}; {two_s:.3f} s with "
+        f"their start-up [{CARD}]")
+
+    _, dry_s = timed(lambda: E.dryrun_multichip(4))
+    log(f"dryrun_multichip(4) on cuda:0: dp and gspmd at dp2 x tp2, tp at dp1 x tp4, "
+        f"accept every TESTING proof; {dry_s:.3f} s [{CARD}]")
+    return counts, 1e3 * statistics.median(seconds[1:])
+
+
+def phase_multi_gpu(proofs, per_device: int = 1024):
+    """(j) with two or more devices: DP weak scaling, `per_device` lanes
+    on each device (SCALING_r05.json's measure: throughput on n devices
+    over n times that on one, here t1 / tn).  In one process, one shard a
+    device; then one process a device, each seeing every card and driving
+    its share (``utils.distributed.device_share``: one card each, so the
+    backend is nccl), each timing its second call.  Then, across the devices, TP
+    at dp1 x tp4 (tp2 on fewer than 4 devices), the stwo fold and commit
+    at lde 18 and the PRODUCTION sharded proof over 8 shards spread over
+    them, each against its single-device oracle.  On one device, prints
+    that none of it was measured."""
+    import torch
+
+    n_gpu = torch.cuda.device_count()
+    if n_gpu < 2:
+        log("dp scaling efficiency over devices: not measured (one device)")
+        return
+    import numpy as np
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import prover_sharded, verifier
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+    from stark_symphony_tpu_torch.models.stwo.prover import _commit_leaves, seeded_trace
+    from stark_symphony_tpu_torch.ops.field import P as M31P
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.parallel import fri_shard as FS
+    from stark_symphony_tpu_torch.parallel.batch import make_mesh, verify_batch_dp, verify_batch_tp
+    from stark_symphony_tpu_torch.parallel.mesh import Mesh, unshard
+    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
+
+    n_bad = len(PROD_TAMPERS)
+    total = n_gpu * per_device
+    batch = tamper_lanes(E.production_batch(total, proofs), PROD_TAMPERS)
+    want = verifier.verify_batch(P.to_torch(batch, "cuda:0"), PRODUCTION)
+    one = P.map_fields(lambda x: x[:per_device], batch)
+    times = {}
+    for n in (1, n_gpu):
+        sub = batch if n == n_gpu else one
+        mesh = make_mesh(n)
+        verify_batch_dp(sub, PRODUCTION, mesh)  # warm-up: each device's tables
+        (bitmap, n_ok), times[n] = timed(lambda: verify_batch_dp(sub, PRODUCTION, mesh))
+        check(torch.equal(bitmap, want[:n * per_device]), f"dp over {n} devices != verify")
+    check(int(n_ok) == total - n_bad, f"dp over {n_gpu} devices: {int(n_ok)} accepted")
+    log(f"dp scaling, one process: {per_device} lanes a device, {times[1]:.3f} s on one "
+        f"device, {times[n_gpu]:.3f} s on {n_gpu}; efficiency {times[1] / times[n_gpu]:.3f} "
+        f"[{CARD} x {n_gpu}]")
+    runs = multi_process_dp(total, n_gpu, runs=2)  # each process sees every card
+    slowest = max(r[3] for r in runs)
+    check(all(r[0] == "nccl" and r[2] == total - n_bad and r[4] == f"[{rank}]"
+              for rank, r in enumerate(runs)), f"{n_gpu}-process dp: {runs}")
+    log(f"dp scaling, one process a device (its share of the cards it sees, nccl): "
+        f"{per_device} lanes each, second call "
+        f"{', '.join(f'{r[3]:.3f}' for r in runs)} s; efficiency against one device "
+        f"{times[1] / slowest:.3f} [{CARD} x {n_gpu}]")
+
+    tp = 4 if n_gpu >= 4 else 2
+    devs = [f"cuda:{i % n_gpu}" for i in range(tp)]
+    (bitmap, _), tp_s = timed(lambda: verify_batch_tp(
+        P.map_fields(lambda x: x[:512], batch), PRODUCTION, make_mesh(tp, tp=tp, devices=devs)))
+    check(torch.equal(bitmap, want[:512]), f"tp over {devs} != verify")
+    spread = [f"cuda:{i % n_gpu}" for i in range(SHARDS)]
+    sp = Mesh(spread, ("sp",))
+    rng = np.random.default_rng(20261019)
+    vals = from_numpy(rng.integers(0, M31P, (1 << 18, 4), dtype=np.uint32), "cuda:0")
+    alphas = [from_numpy(rng.integers(0, M31P, 4, dtype=np.uint32), "cuda:0") for _ in range(14)]
+    folded, fold_s = timed(lambda: unshard(sp, FS.stwo_fold_sharded(vals, alphas, 18, sp, 14),
+                                           "sp"))
+    check(torch.equal(folded, FS.stwo_fold_reference(vals, FS.stwo_domain_points(18), alphas,
+                                                     14)), "stwo_fold_sharded across devices")
+    root, commit_s = timed(lambda: FS.stwo_commit_sharded(vals, sp))
+    check(torch.equal(root, _commit_leaves(vals, 18)[1]), "stwo_commit_sharded across devices")
+    (proof, _), prove_s = timed(lambda: prover_sharded.prove_sharded(
+        PRODUCTION, sp, trace=seeded_trace(PRODUCTION, 0)))
+    check(first_difference(proof, P.load_npz(str(fixture_path(PRODUCTION, 0)))) is None,
+          "the sharded proof across devices differs from its fixture")
+    log(f"across {n_gpu} devices: tp over {tp} shards {tp_s:.3f} s, equal to verify; lde-18 "
+        f"fold (14 stages) {fold_s:.3f} s and commit {commit_s:.3f} s over {SHARDS} shards, "
+        f"equal to their oracles; PRODUCTION sharded proof {prove_s:.3f} s, equal to its "
+        f"fixture [{CARD} x {n_gpu}]")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def stamp(phases):
+        log(f"elapsed after phase {phases}: {time.perf_counter() - t_start:.1f} s")
+
     phase_device()  # (a)
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -1621,6 +2076,7 @@ def main() -> int:
     rng = np.random.default_rng(20261016)
     errs = phase_kernels(rng)  # (c)
     phase_prover_kernels(np.random.default_rng(20261017), errs)
+    stamp("(c)")
 
     t0 = time.perf_counter()
     proofs = E.production_proofs()
@@ -1632,16 +2088,25 @@ def main() -> int:
     rows = phase_timings(rng, errs)  # (f)
     phase_profile("standard", fn, batch, std_ms)
     phase_profile("tiled", fn_t, tb, tiled_ms)
+    stamp("(f)")
     s101_counts, s101_ms, fn_s, sb = phase_stark101()  # (g)
     counts.update(s101_counts)
     phase_stark101_timings(rng, errs)
     phase_profile("stark101", fn_s, sb, s101_ms)
     del fn, batch, fn_t, tb, fn_s, sb
+    stamp("(g)")
     counts.update(phase_graphs(proofs))  # (h)
-    prover_counts, prove_ms = phase_stwo_prover(proofs)  # (i)
+    stamp("(h)")
+    prover_counts, prove_ms, routed = phase_stwo_prover(proofs)  # (i)
     counts.update(prover_counts)
     phase_prover_timings(rng, errs)
     phase_profile("stwo_prover", lambda _: E.prove_stwo(), None, prove_ms)
+    stamp("(i)")
+    sharded_counts, sharded_ms = phase_parallel(proofs, routed, errs)  # (j)
+    counts.update(sharded_counts)
+    phase_profile("stwo_prover_sharded", lambda _: E.prove_stwo_sharded(), None, sharded_ms)
+    phase_multi_gpu(proofs)
+    stamp("(j)")
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:

@@ -15,7 +15,10 @@ device every SHA-256, Merkle and fused-stage call of either path runs in
 the kernels of ``ops/cuda``.  ``entry_stark101()`` is the same for the
 batched stark101 verifier, and ``prove_stark101()`` runs the stark101
 prover; ``prove_stwo()`` runs the stwo prover on the trace of a proof
-cache entry.
+cache entry, and ``prove_stwo_sharded()`` the same with its FRI phase
+sharded over a mesh.  ``dryrun_multichip()`` drives the sharded verifiers
+(DP, the GSPMD counterpart, TP) at TESTING size, the counterpart of
+``__graft_entry__.dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -23,14 +26,17 @@ from __future__ import annotations
 import pathlib
 
 import numpy as np
+import torch
 
 from .models.stark101 import proof as P101
 from .models.stark101 import prover as prover101
 from .models.stark101 import verifier as verifier101
 from .models.stark101.config import Stark101Config
 from .models.stwo import proof as P
-from .models.stwo import prover, tiled, verifier
-from .models.stwo.config import PRODUCTION
+from .models.stwo import prover, prover_sharded, tiled, verifier
+from .models.stwo.config import PRODUCTION, TESTING, TESTING_Q4
+from .parallel.batch import make_mesh, verify_batch_dp, verify_batch_gspmd, verify_batch_tp
+from .parallel.mesh import Mesh
 from .tools.build import capture
 from .utils.proofcache import cached_stwo_proof
 
@@ -117,3 +123,48 @@ def prove_stwo(cfg=PRODUCTION, seed=None, air: str = "wide_fibonacci", device: s
     seed, air) entry (``prover.seeded_trace``): (StwoProof of numpy words,
     {})."""
     return prover.prove(cfg, prover.seeded_trace(cfg, seed, air), air, device)
+
+
+def prove_stwo_sharded(cfg=PRODUCTION, seed=None, n_shards: int = 8, device: str = "cuda",
+                       air: str = "wide_fibonacci"):
+    """The stwo prover with its FRI phase sharded over n_shards shards, all
+    on `device` (``models/stwo/prover_sharded.py``), on the trace of the
+    proof cache's (cfg, seed, air) entry: (StwoProof of numpy words,
+    {"n_sharded_layers": k})."""
+    mesh = Mesh([device] * n_shards, ("sp",))
+    return prover_sharded.prove_sharded(cfg, mesh, trace=prover.seeded_trace(cfg, seed, air),
+                                        air=air)
+
+
+def _check(cond, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"dryrun_multichip: {what}")
+
+
+def dryrun_multichip(n_devices: int, devices=None) -> None:
+    """DP, the GSPMD counterpart and TP over a mesh of n_devices shards on
+    TESTING-size proofs, each required to accept every proof; raises on a
+    failure.  `devices` defaults to the CUDA devices, repeated to fill
+    n_devices shards (so one card holds them all)."""
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count == 0:
+            raise RuntimeError("dryrun_multichip: no CUDA device; pass devices=")
+        devices = [f"cuda:{i % count}" for i in range(n_devices)]
+    proof = cached_stwo_proof(TESTING)
+    tp = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    mesh = make_mesh(n_devices, tp=tp, devices=devices)
+    batch = P.replicate(proof, 2 * n_devices)
+
+    bitmap, n_ok = verify_batch_dp(batch, TESTING, mesh)
+    _check(bool(bitmap.all()) and int(n_ok) == 2 * n_devices,
+           f"dp: {int(n_ok)} of {2 * n_devices} valid proofs accepted")
+    bitmap, n_ok = verify_batch_gspmd(batch, TESTING, mesh)
+    _check(bool(bitmap.all()) and int(n_ok) == 2 * n_devices,
+           f"gspmd: {int(n_ok)} of {2 * n_devices} valid proofs accepted")
+    if n_devices % 4 == 0:
+        mesh4 = make_mesh(n_devices, tp=4, devices=devices)
+        batch4 = P.replicate(cached_stwo_proof(TESTING_Q4), n_devices // 2)
+        bitmap, n_ok = verify_batch_tp(batch4, TESTING_Q4, mesh4)
+        _check(bool(bitmap.all()) and int(n_ok) == n_devices // 2,
+               f"tp: {int(n_ok)} of {n_devices // 2} valid proofs accepted")

@@ -316,35 +316,18 @@ def _pre_fri(cfg: StwoConfig, trace, air: str = "wide_fibonacci") -> PreFri:
     )
 
 
-def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
-    """Stages 1-9 on `trace` (C, T) words; a StwoProof of word tensors on
-    the trace's device."""
-    lde_log = cfg.lde_log_size
-    pre = _pre_fri(cfg, trace, air)
-    dev = trace.device
-    state = ch.ChannelState(pre.state_digest, pre.state_counter)
+def _finish(cfg: StwoConfig, state: ch.ChannelState, pre: PreFri, layers, roots,
+            last) -> StwoProof:
+    """Stages 8-9 after the FRI commitments: mix the last layer's constant,
+    grind the PoW nonce, draw the queries and gather the decommitments.
 
-    # 7. FRI: the fold twiddles are the LDE domain's inverse tables at
-    # every layer (y at the circle fold, the line levels after it)
-    _, tw_inv = device_twiddles(lde_log, dev)
-    fri_values, fri_levels, fri_roots = [pre.first_layer], [], []
-    cur = pre.first_layer
-    log = lde_log
-    for _ in range(1 + cfg.n_inner_layers):
-        levels, root = _commit_leaves(cur, log)
-        fri_levels.append(levels)
-        fri_roots.append(root)
-        state = ch.mix_root(state, root)
-        state, alpha, _ = ch.draw_qm31(state)
-        half = cur.shape[0] // 2
-        a_half, b_half = cur[:half], cur[half:]
-        f0 = F.qm31_add(a_half, b_half)
-        f1 = F.qm31_mul_m31(F.qm31_sub(a_half, b_half), tw_inv[lde_log - log][:half])
-        cur = F.qm31_add(f0, F.qm31_mul(alpha.expand(f1.shape), f1))
-        log -= 1
-        fri_values.append(cur)
-    # last layer: a constant polynomial; mix its coefficient
-    fri_last = cur[0]
+    layers: per committed FRI layer, (its values (n, 4) in natural position
+    order, its tree levels as ``merkle.build_tree`` gives them), on the
+    transcript's device; roots: their roots; last: the values after the
+    last fold.  Returns the StwoProof of word tensors."""
+    lde_log = cfg.lde_log_size
+    dev = pre.trace_lde.device
+    fri_last = last[0]
     state = ch.mix_words(state, fri_last)
 
     # 8. PoW
@@ -357,11 +340,11 @@ def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
     fri_wits, fri_sibs = [], []
     cur_q = queries
     log = lde_log
-    for layer in range(1 + cfg.n_inner_layers):
+    for values, levels in layers:
         # the sibling leaf's value, then the path from the paired node up
-        fri_wits.append(fri_values[layer][bit_reverse(cur_q ^ 1, log)])  # (Q, 4)
+        fri_wits.append(values[bit_reverse(cur_q ^ 1, log)])  # (Q, 4)
         node_idx = (cur_q & 0xFFFFFFFE) >> 1
-        fri_sibs.append(merkle.gather_path(fri_levels[layer][1:], node_idx))
+        fri_sibs.append(merkle.gather_path(levels[1:], node_idx))
         cur_q = node_idx
         log -= 1
 
@@ -374,8 +357,8 @@ def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
         cp_sibs=merkle.gather_path(pre.cp_levels, queries),
         oods_trace=pre.oods_trace,
         oods_cp=pre.oods_cp,
-        fri_first_commit=fri_roots[0],
-        fri_inner_commits=(torch.stack(fri_roots[1:]) if len(fri_roots) > 1
+        fri_first_commit=roots[0],
+        fri_inner_commits=(torch.stack(roots[1:]) if len(roots) > 1
                            else torch.zeros((0, 8), dtype=WORD, device=dev)),
         fri_last=fri_last,
         fri_witnesses=tuple(fri_wits),
@@ -384,12 +367,52 @@ def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
     )
 
 
+def fri_fold(a, b, tw_inv, alpha):
+    """One FRI fold of the position pairs (i, i + n/2) of a layer: a, b
+    (m, 4) their QM31 values, tw_inv (m,) the layer's inverse fold
+    twiddles at i (1/y at the circle fold, 1/x at a line fold), alpha the
+    fold randomness.  (a + b) + alpha (a - b) tw_inv, (m, 4)."""
+    f0 = F.qm31_add(a, b)
+    f1 = F.qm31_mul_m31(F.qm31_sub(a, b), tw_inv)
+    return F.qm31_add(f0, F.qm31_mul(alpha.expand(f1.shape), f1))
+
+
+def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
+    """Stages 1-9 on `trace` (C, T) words; a StwoProof of word tensors on
+    the trace's device."""
+    lde_log = cfg.lde_log_size
+    pre = _pre_fri(cfg, trace, air)
+    state = ch.ChannelState(pre.state_digest, pre.state_counter)
+
+    # 7. FRI: the fold twiddles are the LDE domain's inverse tables at
+    # every layer (y at the circle fold, the line levels after it)
+    _, tw_inv = device_twiddles(lde_log, trace.device)
+    layers, roots = [], []
+    cur = pre.first_layer
+    log = lde_log
+    for _ in range(1 + cfg.n_inner_layers):
+        levels, root = _commit_leaves(cur, log)
+        layers.append((cur, levels))
+        roots.append(root)
+        state = ch.mix_root(state, root)
+        state, alpha, _ = ch.draw_qm31(state)
+        half = cur.shape[0] // 2
+        cur = fri_fold(cur[:half], cur[half:], tw_inv[lde_log - log][:half], alpha)
+        log -= 1
+    # last layer: a constant polynomial
+    return _finish(cfg, state, pre, layers, roots, cur)
+
+
+def _to_numpy_proof(proof: StwoProof) -> StwoProof:
+    """A StwoProof of word tensors as one of numpy uint32 arrays."""
+    return StwoProof(*(tuple(to_numpy(t) for t in x) if isinstance(x, tuple) else to_numpy(x)
+                       for x in proof))
+
+
 def prove(cfg: StwoConfig, trace=None, air: str = "wide_fibonacci", device="cuda"):
     """Make one stwo proof on `device`.  Returns (StwoProof of numpy uint32
     arrays, {}), as the JAX package's prove does; `trace` (C, T) uint32
     defaults to generate_trace(cfg, air=air)."""
     if trace is None:
         trace = generate_trace(cfg, air=air)
-    out = _prove(cfg, from_numpy(trace, device), air)
-    return StwoProof(*(tuple(to_numpy(t) for t in x) if isinstance(x, tuple) else to_numpy(x)
-                       for x in out)), {}
+    return _to_numpy_proof(_prove(cfg, from_numpy(trace, device), air)), {}

@@ -305,7 +305,7 @@ def _routed(airs, air_id):
 
 
 def verify(proof, cfg: StwoConfig, air="wide_fibonacci",
-           linkage: str = "reference", air_id=None):
+           linkage: str = "reference", air_id=None, query_slice=None):
     """Verify one proof, or a stacked batch; returns (ok, masks).
 
     `proof` holds int64 word tensors (``proof.to_torch``), all on one
@@ -315,6 +315,11 @@ def verify(proof, cfg: StwoConfig, air="wide_fibonacci",
     AIR.  linkage 'reference' feeds the stage-VI DEEP quotients into the
     FRI walk; 'unfold' starts the walk from the values recovered by
     unfolding the FRI chain backward (stage VI is computed, not enforced).
+
+    query_slice: None, or (shard_index, n_local) for a query shard of
+    ``parallel/batch.verify_batch_tp``: the proof's per-query arrays hold
+    queries shard_index * n_local .. + n_local only.  The transcript runs
+    whole; every stage after the query draw runs on that slice.
     """
     if linkage not in LINKAGES:
         raise ValueError(f"linkage must be one of {LINKAGES}, not {linkage!r}")
@@ -329,7 +334,10 @@ def verify(proof, cfg: StwoConfig, air="wide_fibonacci",
     queries, cp_alpha, oods_point, deep_alpha, fri_alphas = _stages_i_to_iv(
         proof, cfg, eval_cp, masks
     )
-    n_q = queries.shape[-1]
+    if query_slice is not None:
+        shard, n_local = query_slice
+        queries = queries[..., shard * n_local:(shard + 1) * n_local]
+    n_q = queries.shape[-1]  # cfg.n_queries, or the shard's n_local
 
     # Stage V: trace and CP decommitments, one batched walk
     trace_leaf = sha256_words(proof.trace_evals)  # (..., Q, 8)

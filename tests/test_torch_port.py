@@ -38,7 +38,12 @@ def test_port_never_imports_jax():
         " 'stark_symphony_tpu_torch.parallel.pipeline',"
         " 'stark_symphony_tpu_torch.ops.circle_fft',"
         " 'stark_symphony_tpu_torch.models.stwo.prover',"
-        " 'stark_symphony_tpu_torch.parallel.expert'} <= set(mods), mods\n"
+        " 'stark_symphony_tpu_torch.parallel.expert',"
+        " 'stark_symphony_tpu_torch.parallel.mesh',"
+        " 'stark_symphony_tpu_torch.parallel.batch',"
+        " 'stark_symphony_tpu_torch.parallel.fri_shard',"
+        " 'stark_symphony_tpu_torch.models.stwo.prover_sharded',"
+        " 'stark_symphony_tpu_torch.utils.distributed'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('stark_symphony_tpu.') or m == 'stark_symphony_tpu')\n"
         "assert not bad, bad\n"

@@ -7,7 +7,8 @@ eager ``verify`` on a 2-lane batch (the proof, and the proof with one
 tampered OODS value).  ``parallel.expert.verify_batch_routed`` then
 routes a mixed batch of it and the committed ``wide_fibonacci`` TESTING
 proof, each lane to its own AIR, lane for lane as the single-AIR
-verifier does."""
+verifier does, and ``verify_batch_routed_sharded`` splits that batch over
+two CPU shards with the same result."""
 
 import numpy as np
 import pytest
@@ -21,7 +22,11 @@ from stark_symphony_tpu_torch.models.stwo import proof as TP
 from stark_symphony_tpu_torch.models.stwo import verifier as TV
 from stark_symphony_tpu_torch.models.stwo.config import TESTING
 from stark_symphony_tpu_torch.models.stwo.constraints import AIR_IDS
-from stark_symphony_tpu_torch.parallel.expert import verify_batch_routed
+from stark_symphony_tpu_torch.parallel.batch import make_mesh
+from stark_symphony_tpu_torch.parallel.expert import (
+    verify_batch_routed,
+    verify_batch_routed_sharded,
+)
 from stark_symphony_tpu_torch.utils.proofcache import cached_stwo_proof
 from test_torch_sha256 import jit_jax_compress  # noqa: F401 (autouse)
 
@@ -126,3 +131,16 @@ def test_routed_masks_equal_single_air_verify(mixed, name):
 def test_routed_needs_air_ids(mixed):
     with pytest.raises(ValueError):
         TV.verify(mixed[0], TESTING, AIR_IDS)
+
+
+def test_routed_sharded_equals_routed(fib, product, mixed):
+    """DP over two CPU shards of two lanes each, under the edge-case ids
+    (lanes accepted on one shard, rejected on the other): lane for lane
+    the bitmap of verify_batch_routed on the whole batch, and its count."""
+    batch = TP.stack([fib, product, product, fib])
+    bitmap, n_ok = verify_batch_routed_sharded(batch, np.array(IDS["edges"]), TESTING,
+                                               make_mesh(2, devices=["cpu"] * 2))
+    want = mixed[2]["edges"][0]
+    assert want.tolist() == [True, True, False, False]
+    assert bitmap.dtype == torch.bool and torch.equal(bitmap, want)
+    assert n_ok.dim() == 0 and int(n_ok) == 2

@@ -28,6 +28,7 @@ from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
 from stark_symphony_tpu_torch.ops import merkle as TM
 from stark_symphony_tpu_torch.ops import sha256 as TS
 from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+from stark_symphony_tpu_torch.parallel.batch import make_mesh, verify_batch_dp
 from stark_symphony_tpu_torch.parallel.pipeline import StreamVerifier, scan_microbatches
 from stark_symphony_tpu_torch.tools import build as TB
 from stark_symphony_tpu_torch.utils.proofcache import cached_stwo_proof
@@ -148,6 +149,19 @@ def test_stream_equals_jax(results):
     assert len(got) == 2 and stream.finish() == []
     np.testing.assert_array_equal(got[0].numpy(), want)
     np.testing.assert_array_equal(got[1].numpy(), want[::-1])
+
+
+def test_verify_batch_dp_equals_jax(results):
+    """DP over 4 CPU shards of 4 lanes each (``parallel.batch``): the own
+    TESTING tamper batch's bitmap is JAX's, gathered in lane order on the
+    mesh's first device, and the count is its sum."""
+    batch = tamper_batch(cached_stwo_proof(TESTING), 1 + TESTING.n_inner_layers)
+    bitmap, n_ok = verify_batch_dp(batch, TESTING, make_mesh(4, devices=["cpu"] * 4))
+    want = results["own_reference"]["jax"][0]
+    assert bitmap.dtype == torch.bool and bitmap.device.type == "cpu"
+    np.testing.assert_array_equal(bitmap.numpy(), want)
+    assert n_ok.dtype == torch.int64 and n_ok.dim() == 0
+    assert int(n_ok) == int(want.sum()) == 2
 
 
 def test_tamper_classes_match_the_jax_suite():
