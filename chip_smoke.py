@@ -15,7 +15,9 @@ proofs beside the fixtures (``parallel.expert.verify_batch_routed``, K1-K3);
 then the sharded layer on 8 shards of one card: DP, TP and routed
 verification (K1-K3 in every shard), the domain-sharded FRI fold and
 commit, the sharded prover through ``prove_stwo_sharded()`` (K1, K2) and
-two processes counting one batch.  Each path's launches are counted from 0
+two processes counting one batch; then the tools: the debug CLI's
+verifies (K1-K3), the linkage audit's transcript (K1) and the per-stage
+profiler over both paths (K1-K5).  Each path's launches are counted from 0
 just before it runs and read just after.  In phases:
 
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
@@ -97,12 +99,14 @@ just before it runs and read just after.  In phases:
       every stage's mask (4,081 accepted); ``verify_batch_tp`` and the
       GSPMD counterpart at dp2 x tp4 on 512 of those lanes, likewise; K3
       at a TP shard's FRI walk (256 proofs x 9 layers x 4 queries, depth
-      period 36) against plain and hashlib; ``verify_batch_routed_sharded`` on phase (i)'s
+      period 36) against plain and hashlib, and timed beside its plain
+      version and bound; ``verify_batch_routed_sharded`` on phase (i)'s
       routed batch, equal to ``verify_batch_routed``; the stwo fold and
       commit (every level) at lde 13 and 18 and the stark101 fold at 8,192
       over 10 stages, against their single-device oracles;
-      ``prove_stwo_sharded()`` at PRODUCTION s0, equal to its fixture, and
-      the lde-18 BIG proof accepted by ``verify`` and rejected with one FRI
+      ``prove_stwo_sharded()`` at PRODUCTION s0, equal to its fixture (the
+      bound of one proof's K1 and K2 launches printed), and the lde-18 BIG
+      proof accepted by ``verify`` and rejected with one FRI
       witness word flipped; two processes (gloo, one card), each verifying
       half the DP batch, both counting 4,081; ``dryrun_multichip(4)``; the
       launches of each path equal PATHS; torch.profiler over one sharded
@@ -110,7 +114,22 @@ just before it runs and read just after.  In phases:
       (``phase_multi_gpu``), the DP weak scaling efficiency over them, in
       one process and in one process a device (nccl, each process's
       share of the cards it sees), and TP, the SP
-      blocks and the sharded prover across them, else "not measured".
+      blocks and the sharded prover across them, else "not measured";
+  (k) the tools (``phase_tools``): ``tools/debug`` on proof_test.json,
+      proof.json and the golden stark101 proof, and with ``--ops
+      --ops-filter m31_mul,sha256_pair --limit 50``, each output and exit
+      code equal to the CPU run's, text for text, and proof.json's verify
+      under the transcript recorder launching what a plain verify does
+      (61 / 9 / 2); the linkage audit of proof.json (rank 11 against 12,
+      inconsistent) and of the own PRODUCTION proof (consistent);
+      ``tools/profile_verify`` over both paths at B = 4,096, every stage
+      graphed equal to eager, ``full`` accepting all, each stage's K1-K5
+      launches as PROFILE_LAUNCHES, the per-stage lines printed;
+      ``STPU_CHECK=1``: a TESTING verify accepts, ``m31_add`` on a lane
+      holding P raises FloatingPointError, a capture of the verify raises
+      EagerOnlyError; ``BatchCheckpointer`` over 8 graphed tiled batches,
+      stopped after 4 and resumed, counting what the run never stopped
+      counts.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -266,7 +285,31 @@ PATHS = {
     "stwo_prover_sharded": {"sha256_words": 2 + 9 * 8 + 41 + 1,
                             "sha256_pair": 26 + sum(4 * (log - 3) + 3 for log in range(5, 14)),
                             "merkle_walk": 0, "leafwalk": 0, "fri_all_layers": 0},
+    "debug": {"sha256_words": 61, "sha256_pair": 9, "merkle_walk": 2,
+              "leafwalk": 0, "fri_all_layers": 0},
+    "linkage_audit": {"sha256_words": 41, "sha256_pair": 0, "merkle_walk": 0,
+                      "leafwalk": 0, "fri_all_layers": 0},
+    "profile_standard": {"sha256_words": 41 + 2 + 18 + 61, "sha256_pair": 9 + 9,
+                         "merkle_walk": 1 + 1 + 2, "leafwalk": 0, "fri_all_layers": 0},
+    "profile_tiled": {"sha256_words": 41, "sha256_pair": 0, "merkle_walk": 0,
+                      "leafwalk": 1 + 1 + 2, "fri_all_layers": 1 + 1},
 }
+# (k): each profiled stage's launches over one eager call (tools/profile_verify);
+# PATHS' profile_* rows are their sums.  debug (proof.json, PRODUCTION):
+# one standard verify; linkage_audit: its transcript, stages I-IV's 41 K1.
+PROFILE_LAUNCHES = {
+    "profile_standard": {
+        "stages_i_iv": {"sha256_words": 41},
+        "stage_v": {"sha256_words": 2, "merkle_walk": 1},
+        "stage_vi": {}, "stage_vi_points_only": {},
+        "stage_vii": {"sha256_words": 18, "sha256_pair": 9, "merkle_walk": 1},
+        "full": {"sha256_words": 61, "sha256_pair": 9, "merkle_walk": 2}},
+    "profile_tiled": {
+        "stage_v_trace": {"leafwalk": 1}, "stage_v_cp": {"leafwalk": 1},
+        "fri_fused": {"fri_all_layers": 1}, "points_only": {}, "stage_vi": {},
+        "full": {"sha256_words": 41, "leafwalk": 2, "fri_all_layers": 1}},
+}
+PROFILE_ITERS = 3
 
 # The bound of a kernel call: the larger of bytes / memory rate and integer
 # instructions / integer issue rate, on an H100 SXM.  The memory rate and
@@ -1810,6 +1853,7 @@ def phase_parallel(proofs, routed, err=None):
     from stark_symphony_tpu_torch.models.stwo.prover import _commit_leaves
     from stark_symphony_tpu_torch.ops import field101 as F101
     from stark_symphony_tpu_torch.ops import merkle
+    from stark_symphony_tpu_torch.ops.cuda import build as kbuild
     from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
     from stark_symphony_tpu_torch.ops.field import P as M31P
     from stark_symphony_tpu_torch.ops.u32 import from_numpy, to_numpy
@@ -1885,9 +1929,13 @@ def phase_parallel(proofs, routed, err=None):
                                                 sibs.reshape(-1, top, 8)[lane],
                                                 int(depths[lane % depths.size])),
               f"merkle_walk at a TP shard's FRI walk, lane {lane} != hashlib")
+    k3_ms = cuda_ms(lambda: ck.merkle_compute_root(*args, depths), 20)
+    k3_plain_ms = cuda_ms(lambda: merkle.compute_root_plain(*args, depths), 2)
+    k3_bound_ms, k3_by, _ = bound("merkle_walk", (*args, depths), [got])
     log(f"K3 merkle_walk at a TP shard's FRI walk ({bshape[0]} proofs x {depths.size} paths, "
         f"depths {top}..{int(depths.min())}, period {depths.size}): bit-equal to plain and "
-        f"hashlib")
+        f"hashlib; wrapper {k3_ms:.4f} ms (CUDA events, mean of 20), plain {k3_plain_ms:.3f} "
+        f"ms, bound {k3_bound_ms:.6f} ms ({k3_by}) [{CARD}]")
 
     mixed, air_ids, routed_ok = routed
     (bitmap, n_ok), secs, counts["routed_sharded"] = counted(
@@ -1932,10 +1980,20 @@ def phase_parallel(proofs, routed, err=None):
         f"equal to the reference; {s101:.3f} s [{CARD}]")
 
     fixture = P.load_npz(str(fixture_path(PRODUCTION, 0)))
-    seconds = []
-    for _ in range(5):
-        (proof, info), secs, made = counted(
-            "stwo_prover_sharded", lambda: E.prove_stwo_sharded(PRODUCTION, seed=0))
+    seconds, record = [], []
+    launch = kbuild.launch
+
+    def recording(name, device, *args):
+        record.append((name, launch_bound(name, args)))
+        launch(name, device, *args)
+
+    for i in range(5):
+        kbuild.launch = recording if i == 0 else launch  # the first proof's launches
+        try:
+            (proof, info), secs, made = counted(
+                "stwo_prover_sharded", lambda: E.prove_stwo_sharded(PRODUCTION, seed=0))
+        finally:
+            kbuild.launch = launch
         diff = first_difference(proof, fixture)
         check(diff is None, f"sharded stwo proof (PRODUCTION, s0): {diff and diff[0]} differs "
               f"from the fixture first at index {diff and diff[1]}")
@@ -1947,7 +2005,9 @@ def phase_parallel(proofs, routed, err=None):
         f"every FRI layer sharded, equal to its fixture in every field five times; "
         f"{seconds[0]:.4f} s first, median {statistics.median(seconds[1:]):.4f} s of the "
         f"next {len(seconds) - 1} ({min(seconds[1:]):.4f}-{max(seconds[1:]):.4f} s); "
-        f"launches a proof {made} [{CARD}]")
+        f"launches a proof {made}; their bound K1 "
+        f"{sum(b for k, b in record if k == 'sha256_words'):.6f} ms, K2 "
+        f"{sum(b for k, b in record if k == 'sha256_pair'):.6f} ms [{CARD}]")
 
     big = StwoConfig(**BIG)
     (proof, info), big_s = timed(lambda: E.prove_stwo_sharded(big))
@@ -2059,6 +2119,184 @@ def phase_multi_gpu(proofs, per_device: int = 1024):
         f"fixture [{CARD} x {n_gpu}]")
 
 
+def phase_tools(proofs) -> dict:
+    """(k): the tools and utils layer on the card.
+
+    debug (``tools/debug.main``) on ``proof_test.json``, ``proof.json`` and
+    stark101's golden proof: each transcript, mask list and exit code
+    equal to the CPU run's, text for text, and the launches of proof.json's
+    verify under ``record_transcript`` equal to a plain verify's and to
+    PATHS (61 / 9 / 2: recording adds none); ``--ops --ops-filter
+    m31_mul,sha256_pair --limit 50`` equal to the CPU run's.  The linkage
+    audit of proof.json: 16 queries, 20 columns, rank 11, augmented 12,
+    inconsistent; of the own PRODUCTION proof: consistent.  The profiler
+    (``tools/profile_verify``) over both paths at B = 4,096: every graphed
+    stage equal to its eager run (it raises otherwise), ``full`` accepting
+    every proof, each stage's K1-K5 launches as PROFILE_LAUNCHES, the
+    run's total as its stages give it; the lines printed.  STPU_CHECK on:
+    a TESTING verify accepts, ``m31_add`` on a lane holding P raises
+    FloatingPointError, and a capture of the verify raises EagerOnlyError
+    (the context still verifies after it).  BatchCheckpointer over 8
+    graphed tiled batches (valid and tampered in turn), stopped after 4
+    and resumed: 4 skipped, the accepted count and the journal those of
+    the run never stopped.  Returns the launch counts by path."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import tiled, verifier
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
+    from stark_symphony_tpu_torch.ops import checks
+    from stark_symphony_tpu_torch.ops import field as F
+    from stark_symphony_tpu_torch.tools import build as TB
+    from stark_symphony_tpu_torch.tools import debug
+    from stark_symphony_tpu_torch.tools import linkage_audit as LA
+    from stark_symphony_tpu_torch.tools import profile_verify as PV
+    from stark_symphony_tpu_torch.utils.checkpoint import BatchCheckpointer
+    from stark_symphony_tpu_torch.utils.proofcache import cached_stwo_proof
+
+    t_start = time.perf_counter()
+    fixtures = ROOT / "tests" / "fixtures"
+    counts = {}
+
+    def run_debug(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = debug.main(list(argv))
+        return rc, out.getvalue()
+
+    cases = [("stwo", "stwo/proof_test.json", 1, ()), ("stwo", "stwo/proof.json", 1, ()),
+             ("stark101", "stark101/golden_proof.json", 0, ()),
+             ("stwo", "stwo/proof_test.json", 1,
+              ("--ops", "--ops-filter", "m31_mul,sha256_pair", "--limit", "50"))]
+    for scheme, name, want_rc, extra in cases:
+        argv = (scheme, str(fixtures / name), *extra)
+        (rc_cpu, out_cpu), cpu_s = timed(lambda: run_debug(*argv, "--device", "cpu"))
+        reset_counts()
+        (rc, out), gpu_s = timed(lambda: run_debug(*argv, "--device", "cuda"))
+        made = launch_counts()
+        check(rc == rc_cpu == want_rc, f"debug {name} {extra}: exit {rc} on the card, "
+              f"{rc_cpu} on the CPU, want {want_rc}")
+        check(out == out_cpu, f"debug {name} {extra}: the card's output != the CPU run's")
+        lines = out.splitlines()
+        n_events = sum(1 for line in lines if line.startswith("["))
+        log(f"debug {scheme} {name} {' '.join(extra)}: output equal to the CPU run's, text "
+            f"for text ({n_events} events, {lines[-1]}, exit {rc}); {gpu_s:.3f} s on the card, "
+            f"{cpu_s:.3f} s on the CPU; launches {made} [{CARD}]")
+        if name == "stwo/proof.json":
+            counts["debug"] = made
+            check_counts("debug", made)
+            proof, cfg = P.load_json(str(fixtures / name))
+            reset_counts()
+            verifier.verify(P.to_torch(proof, "cuda"), cfg)
+            torch.cuda.synchronize()
+            check(launch_counts() == made, f"debug: recording changed the launches: {made}, "
+                  f"a plain verify {launch_counts()}")
+
+    proof, cfg = P.load_json(str(fixtures / "stwo" / "proof.json"))
+    reset_counts()
+    res, audit_s = timed(lambda: LA.audit(proof, cfg, "cuda"))
+    counts["linkage_audit"] = launch_counts()
+    check_counts("linkage_audit", counts["linkage_audit"])
+    check(res == {"n_queries": 16, "n_columns": 20, "rank": 11, "rank_augmented": 12,
+                  "consistent": False}, f"linkage audit of proof.json: {res}")
+    own, own_s = timed(lambda: LA.audit(cached_stwo_proof(PRODUCTION), PRODUCTION, "cuda"))
+    check(own["consistent"] and own["rank"] == own["rank_augmented"],
+          f"linkage audit of the own PRODUCTION proof: {own}")
+    log(f"linkage audit: proof.json {res} in {audit_s:.3f} s; the own PRODUCTION proof "
+        f"{own} in {own_s:.3f} s; launches {counts['linkage_audit']} [{CARD}]")
+
+    valid = E.production_batch(N_PROOFS, proofs)
+    for path, profile, names in (("profile_standard", PV.profile_standard, PV.STAGES),
+                                 ("profile_tiled", PV.profile_tiled, PV.TILED_STAGES)):
+        reset_counts()
+        lines, secs = timed(lambda: profile(valid, PRODUCTION, PROFILE_ITERS, "cuda"))
+        total = launch_counts()
+        check([line["stage"] for line in lines] == list(names), f"{path}: stages {lines}")
+        check(lines[-1]["accepted"] == N_PROOFS,
+              f"{path}: full accepted {lines[-1]['accepted']} of {N_PROOFS}")
+        per_path = {k: 0 for k in KERNELS}
+        for line in lines:
+            want = PROFILE_LAUNCHES[path][line["stage"]]
+            check(line["launches"] == want, f"{path} {line['stage']}: launches "
+                  f"{line['launches']}, want {want}")
+            for k, n in line["launches"].items():
+                per_path[k] += n
+            log(f"{path}: {json.dumps(line)} [{CARD}]")
+        check_counts(path, per_path)
+        # each stage: a first eager call, PROFILE_ITERS timed ones, a warm-up
+        # and the capture; the standard path's transcript once more for its
+        # queries
+        runs = PROFILE_ITERS + 3
+        extra = PROFILE_LAUNCHES[path]["stages_i_iv"] if path == "profile_standard" else {}
+        want_total = {k: runs * n + extra.get(k, 0) for k, n in per_path.items()}
+        check(total == want_total, f"{path}: the run launched {total}, want {want_total}")
+        counts[path] = per_path
+        log(f"{path}: every graphed stage equal to its eager run; {secs:.3f} s in all; "
+            f"the stages' launches {per_path}, the run's {total} [{CARD}]")
+        torch.cuda.empty_cache()
+
+    small = P.to_torch(P.replicate(cached_stwo_proof(TESTING), 64), "cuda")
+    with checks.checking():
+        (ok, _), check_s = timed(lambda: verifier.verify(small, TESTING))
+        check(bool(ok.all()), "STPU_CHECK=1: the TESTING verify rejected valid proofs")
+        lane = torch.tensor([1, 2, F.P, 3], dtype=torch.int64, device="cuda")
+        raised = None
+        try:
+            F.m31_add(lane, lane)
+        except FloatingPointError as e:
+            raised = str(e)
+        check(raised == "overflow check failed: m31_add lhs (bound 0x7fffffff)",
+              f"STPU_CHECK=1: m31_add on a lane holding P raised {raised!r}")
+        refused = None
+        try:
+            TB.capture(lambda b: verifier.verify_batch(b, TESTING), (small,))
+        except checks.EagerOnlyError as e:
+            refused = str(e)
+        check(refused is not None and "STPU_CHECK=1 needs eager mode" in refused,
+              f"STPU_CHECK=1: capture of a verify gave {refused!r}")
+    check(bool(verifier.verify_batch(small, TESTING).all()),
+          "after the refused capture the context no longer verifies")
+    log(f"STPU_CHECK=1 on the card: a TESTING verify of 64 lanes accepts in {check_s:.3f} s; "
+        f"m31_add on a lane holding P raises FloatingPointError ({raised}); "
+        f"tools/build.capture of the verify raises EagerOnlyError ({refused}) [{CARD}]")
+
+    fn, (tb,) = E.entry_tiled(N_PROOFS, "cuda", proofs, graphed=True)
+    bad = tiled.tile_batch(tamper_lanes(valid, PROD_TAMPERS), PRODUCTION, "cuda")
+    batches = [tb, bad] * 4
+    with tempfile.TemporaryDirectory() as d:
+        whole = BatchCheckpointer(f"{d}/whole.jsonl")
+        for i, b in enumerate(batches):
+            whole.record(i, fn(b))
+        stopped = BatchCheckpointer(f"{d}/stopped.jsonl")
+        for i, b in enumerate(batches[:4]):
+            stopped.record(i, fn(b))
+        resumed, skipped = BatchCheckpointer(f"{d}/stopped.jsonl"), 0
+        for i, b in enumerate(batches):
+            if resumed.done(i):
+                skipped += 1
+                continue
+            resumed.record(i, fn(b))
+        same = (pathlib.Path(d) / "whole.jsonl").read_bytes() == \
+            (pathlib.Path(d) / "stopped.jsonl").read_bytes()
+    want_ok = 4 * N_PROOFS + 4 * (N_PROOFS - len(PROD_TAMPERS))
+    check(skipped == 4 and resumed.batches() == 8 and same
+          and resumed.accepted() == whole.accepted() == want_ok,
+          f"BatchCheckpointer: skipped {skipped}, accepted {resumed.accepted()} against "
+          f"{whole.accepted()} (want {want_ok}), journals equal {same}")
+    log(f"BatchCheckpointer: 8 graphed tiled batches of {N_PROOFS}, stopped after 4 and "
+        f"resumed: 4 skipped, {resumed.accepted()} accepted as in the run never stopped, "
+        f"journals byte-equal [{CARD}]")
+    del fn, tb, bad, batches
+    torch.cuda.empty_cache()
+    log(f"phase (k): {time.perf_counter() - t_start:.1f} s")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -2107,6 +2345,8 @@ def main() -> int:
     phase_profile("stwo_prover_sharded", lambda _: E.prove_stwo_sharded(), None, sharded_ms)
     phase_multi_gpu(proofs)
     stamp("(j)")
+    counts.update(phase_tools(proofs))  # (k)
+    stamp("(k)")
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:

@@ -16,10 +16,13 @@ import torch
 
 from ...ops.field101 import mod_words_be
 from ...ops.sha256 import sha256_words
+from ...utils import trace as _trace
 
 
 def mix_words(state, words):
-    return sha256_words(torch.cat([state, words], dim=-1))
+    digest = sha256_words(torch.cat([state, words], dim=-1))
+    _trace.emit("mix", digest)
+    return digest
 
 
 def mix_u32(state, value):
@@ -28,4 +31,6 @@ def mix_u32(state, value):
 
 def draw(state, max_value: int):
     """Draw an integer in [0, max_value) and advance the state."""
-    return sha256_words(state), mod_words_be(state, max_value)
+    value = mod_words_be(state, max_value)
+    _trace.emit("draw", value)
+    return sha256_words(state), value

@@ -19,6 +19,7 @@ import torch
 from ...ops import field as F
 from ...ops.sha256 import sha256_words
 from ...ops.u32 import M32, WORD
+from ...utils import trace as _trace
 
 DBL_P = 0xFFFFFFFE  # 2 * (2^31 - 1) = 2^32 - 2
 
@@ -39,13 +40,16 @@ def draw_words(state: ChannelState):
     """One draw: H(digest || counter) -> 8 words; counter += 1."""
     msg = torch.cat([state.digest, state.counter[..., None]], dim=-1)
     words = sha256_words(msg)
+    _trace.emit("draw", words)
     return ChannelState(state.digest, (state.counter + 1) & M32), words
 
 
 def mix_words(state: ChannelState, words) -> ChannelState:
     """Mix payload words: digest = H(digest || words); counter = 0."""
     msg = torch.cat([state.digest, words], dim=-1)
-    return ChannelState(sha256_words(msg), torch.zeros_like(state.counter))
+    digest = sha256_words(msg)
+    _trace.emit("mix", digest)
+    return ChannelState(digest, torch.zeros_like(state.counter))
 
 
 def mix_root(state: ChannelState, root) -> ChannelState:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from . import checks as _checks
 from .u32 import M32, WORD, const, mul32_wide
 
 P = 0x7FFFFFFF  # 2^31 - 1
@@ -33,6 +34,9 @@ def m31_reduce(x):
 
 
 def m31_add(a, b):
+    if _checks.ON:  # STPU_CHECK=1: canonical inputs (ops/checks.py)
+        _checks.check_lt(a, P, "m31_add lhs")
+        _checks.check_lt(b, P, "m31_add rhs")
     return m31_reduce((a + b) & M32)
 
 
@@ -47,6 +51,9 @@ def m31_sub(a, b):
 
 def m31_mul(a, b):
     """a * b mod p: the 64-bit product folded twice (2^31 = 1 mod p)."""
+    if _checks.ON:
+        _checks.check_lt(a, P, "m31_mul lhs")
+        _checks.check_lt(b, P, "m31_mul rhs")
     hi, lo = mul32_wide(a, b)
     low31 = lo & P
     high = ((hi << 1) & M32) | (lo >> 31)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from . import checks as _checks
 from .u32 import M32, WORD, mul32_wide, mullo32
 
 Q = 3221225473  # 3 * 2^30 + 1
@@ -71,6 +72,9 @@ def f_add(a, b):
     """a + b mod q for a + b < 2q; on other words, the JAX package's word:
     a wrapped uint32 sum takes 2^32 - q, an unwrapped one at or above q
     loses q once."""
+    if _checks.ON:  # STPU_CHECK=1: canonical inputs (ops/checks.py)
+        _checks.check_lt(a, Q, "f_add lhs")
+        _checks.check_lt(b, Q, "f_add rhs")
     s = a + b  # < 2^33, exact in int64
     s32 = s & M32
     s_w = (s32 + _2_32_MINUS_Q) & M32

@@ -98,6 +98,15 @@ def verifier_source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def require_device(device: str) -> str:
+    """`device`, or a RuntimeError where it names CUDA and there is none:
+    a tool never falls back to the CPU by itself."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: CUDA is not available; pass --device cpu "
+                           "to run on the CPU")
+    return device
+
+
 def tree_map(fn, tree, *rest):
     """fn over the leaves of `tree` and the matching leaves of `rest`; a
     leaf is anything but a tuple (NamedTuples kept as their type), list or

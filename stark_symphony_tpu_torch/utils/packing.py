@@ -1,7 +1,7 @@
-"""u256 digests <-> big-endian u32 word arrays (numpy only).
+"""u256 digests, 32-byte strings, hex and u64 <-> big-endian u32 word
+arrays (numpy in, numpy out).
 
-The port's copy of the two helpers of ``stark_symphony_tpu/utils/packing.py``
-that its stark101 proof ingestion and ``to_json_dict`` use.
+The port's copy of ``stark_symphony_tpu/utils/packing.py``.
 """
 
 from __future__ import annotations
@@ -25,3 +25,24 @@ def words_to_u256(words) -> int:
     for w in words:
         v = (v << 32) | int(w)
     return v
+
+
+def bytes32_to_words(b: bytes) -> np.ndarray:
+    if len(b) != 32:
+        raise ValueError(f"expected 32 bytes, got {len(b)}")
+    return np.frombuffer(b, dtype=">u4").astype(np.uint32)
+
+
+def words_to_bytes32(words) -> bytes:
+    return np.asarray(words, dtype=np.uint32).astype(">u4").tobytes()
+
+
+def hex_to_words(h: str) -> np.ndarray:
+    if h.startswith("0x"):
+        h = h[2:]
+    return u256_to_words(int(h, 16))
+
+
+def u64_to_words(value: int) -> np.ndarray:
+    """u64 -> (hi, lo) big-endian u32 pair."""
+    return np.array([value >> 32, value & 0xFFFFFFFF], dtype=np.uint32)

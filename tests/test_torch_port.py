@@ -2,6 +2,8 @@
 ingestion and fixtures, its entry point, and chip_smoke.py's refusal to run
 without a GPU."""
 
+import ast
+import importlib
 import os
 import pathlib
 import subprocess
@@ -16,6 +18,7 @@ from stark_symphony_tpu_torch import entry as E
 from stark_symphony_tpu_torch.models.stwo import proof as TP
 from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING, TESTING_Q4
 from stark_symphony_tpu_torch.utils import proofcache as PC
+from stark_symphony_tpu_torch.utils import trace as TT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 OK_LINE_START = '{"ok": true'
@@ -43,7 +46,14 @@ def test_port_never_imports_jax():
         " 'stark_symphony_tpu_torch.parallel.batch',"
         " 'stark_symphony_tpu_torch.parallel.fri_shard',"
         " 'stark_symphony_tpu_torch.models.stwo.prover_sharded',"
-        " 'stark_symphony_tpu_torch.utils.distributed'} <= set(mods), mods\n"
+        " 'stark_symphony_tpu_torch.utils.distributed',"
+        " 'stark_symphony_tpu_torch.ops.checks',"
+        " 'stark_symphony_tpu_torch.utils.trace',"
+        " 'stark_symphony_tpu_torch.utils.checkpoint',"
+        " 'stark_symphony_tpu_torch.tools.witness',"
+        " 'stark_symphony_tpu_torch.tools.debug',"
+        " 'stark_symphony_tpu_torch.tools.linkage_audit',"
+        " 'stark_symphony_tpu_torch.tools.profile_verify'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('stark_symphony_tpu.') or m == 'stark_symphony_tpu')\n"
         "assert not bad, bad\n"
@@ -52,6 +62,35 @@ def test_port_never_imports_jax():
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def _hash_imports(path: pathlib.Path) -> set:
+    """Names of sha256_words / sha256_pair a module imports by name."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").endswith("sha256"):
+            names |= {a.name for a in node.names} & {"sha256_words", "sha256_pair"}
+    return names
+
+
+def test_op_sites_cover_every_hash_import():
+    """Each entry of utils/trace._OP_SITES resolves to a port module and
+    its functions, and every port module that imports a hash op by name is
+    listed with that op (a missed site would be a silent hole in
+    tools/debug --ops)."""
+    listed = {m: set(attrs) for m, attrs in TT._OP_SITES}
+    for m, attrs in listed.items():
+        assert m.startswith("stark_symphony_tpu_torch.")
+        mod = importlib.import_module(m)
+        assert all(callable(getattr(mod, a)) for a in attrs), m
+    pkg = ROOT / "stark_symphony_tpu_torch"
+    for path in sorted(pkg.rglob("*.py")):
+        names = _hash_imports(path)
+        if not names:
+            continue
+        rel = path.relative_to(ROOT).with_suffix("")
+        mod = ".".join(rel.parts)
+        assert names <= listed.get(mod, set()), (mod, names)
 
 
 def test_chip_smoke_refuses_without_gpu():
