@@ -17,8 +17,11 @@ verification (K1-K3 in every shard), the domain-sharded FRI fold and
 commit, the sharded prover through ``prove_stwo_sharded()`` (K1, K2) and
 two processes counting one batch; then the tools: the debug CLI's
 verifies (K1-K3), the linkage audit's transcript (K1) and the per-stage
-profiler over both paths (K1-K5).  Each path's launches are counted from 0
-just before it runs and read just after.  In phases:
+profiler over both paths (K1-K5); then what the JAX package compiles, as
+CUDA graphs: both provers (``graphed=True``; K1, K2), routed verify and
+DP, TP, GSPMD and routed-sharded with a graph a shard (K1-K3).  Each
+path's launches are counted from 0 just before it runs and read just
+after.  In phases:
 
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
       name and power limit as nvidia-smi reports them;
@@ -129,7 +132,24 @@ just before it runs and read just after.  In phases:
       holding P raises FloatingPointError, a capture of the verify raises
       EagerOnlyError; ``BatchCheckpointer`` over 8 graphed tiled batches,
       stopped after 4 and resumed, counting what the run never stopped
-      counts.
+      counts;
+  (l) compiled (``phase_compiled``): ``prove_stwo(graphed=True)`` at
+      PRODUCTION, unseeded and seeds 0-15 (graph A through the first PoW
+      chunk, one read of 3 words, graph B), each proof equal to its
+      fixture and to phase (i)'s eager proof word for word, A's and B's
+      launches together PATHS' (53 K1, 107 K2), the counts over all 17
+      proofs those of one warm-up and one capture; capture, instantiate
+      and pool of A and B, the first call and the median of 16 replays,
+      the device's busy share of a profiled graphed proof; TESTING at 20
+      PoW bits, where A's chunk misses and the eager grind carries on,
+      equal to its eager proof; ``prove_stark101(graphed=True)`` equal to
+      the golden proof and to eager, 37 K1 and 98 K2 in its graph;
+      routed verify captured (``tools/build.capture``), phase (i)'s bitmap
+      and masks; DP, TP, GSPMD and routed-sharded with ``graphed=True`` on
+      8 shards of cuda:0, twice each, phase (j)'s bitmaps, counts and
+      masks, each shard's capture seconds, the shard graphs' launches
+      against PATHS (8 x 61 / 9 / 2; GSPMD replays TP's graphs), the
+      seconds of a call with its ingestion.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -155,6 +175,7 @@ CARD = "not read"  # the card's name and power limit, as nvidia-smi gives them
 PACKAGE = "stark_symphony_tpu_torch"
 N_PROOFS = 4096
 LANES = 4097  # not a multiple of any block size: the ragged edge runs
+PROVER_SEEDS = [None] + list(range(16))  # the PRODUCTION proofs (i) and (l) make
 BIG_LANES = 33_793  # K1-K3 take 128-lane blocks from 33,792 lanes: 264 and 1
 
 # The 15 tamper classes of tests/test_pow_production.py (PROD_TAMPERS):
@@ -294,6 +315,12 @@ PATHS = {
     "profile_tiled": {"sha256_words": 41, "sha256_pair": 0, "merkle_walk": 0,
                       "leafwalk": 1 + 1 + 2, "fri_all_layers": 1 + 1},
 }
+# (l): JAX's compiled programs as CUDA graphs launch what their eager runs
+# do: the stwo prover's graphs A and B together (the first PoW chunk in A),
+# stark101's body, routed verify, and one graph a shard of dp, tp and
+# routed_sharded (gspmd replays tp's)
+PATHS.update({f"{path}_graphed": dict(PATHS[path]) for path in (
+    "stwo_prover", "stark101_prove", "routed", "dp", "tp", "routed_sharded")})
 # (k): each profiled stage's launches over one eager call (tools/profile_verify);
 # PATHS' profile_* rows are their sums.  debug (proof.json, PRODUCTION):
 # one standard verify; linkage_audit: its transcript, stages I-IV's 41 K1.
@@ -309,7 +336,7 @@ PROFILE_LAUNCHES = {
         "fri_fused": {"fri_all_layers": 1}, "points_only": {}, "stage_vi": {},
         "full": {"sha256_words": 41, "leafwalk": 2, "fri_all_layers": 1}},
 }
-PROFILE_ITERS = 3
+PROFILE_ITERS = 2
 
 # The bound of a kernel call: the larger of bytes / memory rate and integer
 # instructions / integer issue rate, on an H100 SXM.  The memory rate and
@@ -478,12 +505,13 @@ def _hashlib_root(leaf, idx, sibs, depth) -> list:
     return cur
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, warm: bool = False) -> float:
     """Mean milliseconds of fn() over iters runs, by CUDA events, after
-    one warm-up run."""
+    one warm-up run (none where the caller has just run fn: `warm`)."""
     import torch
 
-    fn()
+    if not warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1134,7 +1162,8 @@ def time_cases(cases, err):
                   "want both values")
         b_ms, b_by, compr = bound(name, kargs, outs)
         k_ms = cuda_ms(lambda: kern[name](*kargs), 20)
-        p_ms = cuda_ms(lambda: plain[name](*args), 2)
+        # the plain version ran just above (`want`): one timed run more
+        p_ms = cuda_ms(lambda: plain[name](*args), 1, warm=True)
         calls.append((name, lambda f=kern[name], a=kargs: f(*a)))
         rows.append([name, what, k_ms, p_ms, b_ms, b_by, compr])
         log(f"time {name} [{what}]: bit-equal; kernel {k_ms:.4f} ms, plain "
@@ -1385,8 +1414,8 @@ def phase_graphs(proofs) -> dict:
     then the valid batch with the tamper classes in lanes 1-15 (stark101
     1-10), gives the eager bitmap and every eager mask bit for bit, and so
     does the entry's graph its bitmap: exactly those lanes are rejected,
-    so replay reads new inputs; eager and graphed batch ms (median of 5,
-    each timed alone), the device's busy share of a profiled graphed call,
+    so replay reads new inputs; eager and graphed batch ms (median of 3
+    and of 5, each timed alone), the device's busy share of a profiled graphed call,
     capture and instantiate seconds and the graph pool's memory are
     printed with the card's name and power limit.  Then, on the tiled
     path: make_chained at chain 2 gives the eager bitmaps; StreamVerifier
@@ -1446,7 +1475,7 @@ def phase_graphs(proofs) -> dict:
         check(all(n >= fn.launches[k] for k, n in launch_counts().items()),
               f"{path} graph: the counts do not hold the capture's launches")
         reset_counts()
-        eager_ms, eager_runs = batch_ms(fn.fn, batch)
+        eager_ms, eager_runs = batch_ms(fn.fn, batch, runs=3)
         eager = {k: n // len(eager_runs) for k, n in launch_counts().items()}
         check(fn.launches == eager and all(n % len(eager_runs) == 0
                                            for n in launch_counts().values()),
@@ -1605,7 +1634,8 @@ def phase_stwo_prover(proofs):
     every lane accepted, every lane rejected with the ids swapped, every
     mask equal to the single-AIR verify of its lanes, the batch timed with
     CUDA events.  Returns (launch counts by path, the median ms of a
-    proof, (the routed batch as numpy, its air_ids, its bitmap))."""
+    proof, (the routed batch as numpy, its air_ids, its bitmap, its
+    masks), the eager proofs by seed)."""
     import statistics
 
     import numpy as np
@@ -1619,7 +1649,7 @@ def phase_stwo_prover(proofs):
     from stark_symphony_tpu_torch.parallel.expert import verify_batch_routed
     from stark_symphony_tpu_torch.utils.proofcache import fixture_path
 
-    counts, seconds = {}, []
+    counts, seconds, made_proofs = {}, [], {}
     record = []
     launch = build.launch
 
@@ -1629,7 +1659,7 @@ def phase_stwo_prover(proofs):
 
     build.launch = recording
     try:
-        for seed in [None] + list(range(16)):
+        for seed in PROVER_SEEDS:
             record.clear()
             reset_counts()
             torch.cuda.synchronize()
@@ -1642,6 +1672,7 @@ def phase_stwo_prover(proofs):
             check(diff is None, f"stwo proof (PRODUCTION, seed {seed}) made on the card: "
                   f"{diff and diff[0]} differs from the fixture first at index "
                   f"{diff and diff[1]}")
+            made_proofs[seed] = proof
             made = launch_counts()
             check(made == counts.get("stwo_prover", made),
                   f"stwo prover: seed {seed} launched {made}, seed None {counts.get('stwo_prover')}")
@@ -1690,13 +1721,13 @@ def phase_stwo_prover(proofs):
         for k in want:
             check(torch.equal(masks[k][air_id::2], want[k][air_id::2]),
                   f"routed mask {k} != the single-AIR verify on air_id {air_id} lanes")
-    routed_ms, runs = batch_ms(lambda b: verify_batch_routed(b, ids, PRODUCTION), batch)
+    routed_ms, runs = batch_ms(lambda b: verify_batch_routed(b, ids, PRODUCTION), batch, runs=3)
     log(f"routed: {N_PROOFS} lanes (fixtures air_id 0, wide_product air_id 1) all "
         f"accepted, all rejected with the ids swapped, all {len(masks)} masks equal to "
         f"the single-AIR verify of their lanes; launches {counts['routed']}; batch "
         f"{routed_ms:.3f} ms ({N_PROOFS / (routed_ms / 1e3):.1f} proofs/s; CUDA events, "
         f"median of {len(runs)}: {', '.join(f'{r:.1f}' for r in runs)} ms) [{CARD}]")
-    return counts, 1e3 * steady, (mixed, ids.cpu().numpy(), ok)
+    return counts, 1e3 * steady, (mixed, ids.cpu().numpy(), ok, masks), made_proofs
 
 
 def phase_prover_timings(rng, err):
@@ -1840,7 +1871,8 @@ def phase_parallel(proofs, routed, err=None):
     verifying half the DP batch each: 4,081 in both.  The entry point's dry
     run over 4 shards.  Each path's launches counted from 0 and held to PATHS;
     each time by the host clock with the device synchronized.  Returns (the
-    launch counts by path, the median ms of a sharded proof)."""
+    launch counts by path, the median ms of a sharded proof, the eager
+    (bitmap, n_ok[, masks]) of dp, tp, gspmd and routed_sharded)."""
     import statistics
 
     import numpy as np
@@ -1887,6 +1919,7 @@ def phase_parallel(proofs, routed, err=None):
     check(torch.equal(bitmap, want), "dp bitmap != the unsharded verify")
     check(same_masks(masks, slice(None)), "dp masks != the unsharded verify's")
     check(int(n_ok) == N_PROOFS - n_bad, f"dp: {int(n_ok)} accepted, want {N_PROOFS - n_bad}")
+    eager = {"dp": (bitmap, n_ok, masks)}
     log(f"dp: verify_batch_dp over {SHARDS} shards on cuda:0, {N_PROOFS} lanes with the "
         f"{n_bad} tamper classes in lanes 1-{n_bad}: bitmap and all {len(masks)} masks "
         f"equal to verify, {int(n_ok)} accepted; {dp_s:.3f} s with its ingestion "
@@ -1903,6 +1936,7 @@ def phase_parallel(proofs, routed, err=None):
               f"{name} at dp2 x tp4: bitmap or count != the unsharded verify")
         check(same_masks(masks, slice(0, n_tp)),
               f"{name} at dp2 x tp4: masks != the unsharded verify's")
+        eager[name] = (bitmap, n_ok, masks)
         log(f"{name}: dp2 x tp4 on cuda:0, {n_tp} lanes: bitmap and all {len(masks)} masks "
             f"(each the AND of its 4 query shards') equal to verify, {int(n_ok)} accepted; "
             f"{secs:.3f} s with its ingestion; launches {made} [{CARD}]")
@@ -1930,19 +1964,20 @@ def phase_parallel(proofs, routed, err=None):
                                                 int(depths[lane % depths.size])),
               f"merkle_walk at a TP shard's FRI walk, lane {lane} != hashlib")
     k3_ms = cuda_ms(lambda: ck.merkle_compute_root(*args, depths), 20)
-    k3_plain_ms = cuda_ms(lambda: merkle.compute_root_plain(*args, depths), 2)
+    k3_plain_ms = cuda_ms(lambda: merkle.compute_root_plain(*args, depths), 1, warm=True)
     k3_bound_ms, k3_by, _ = bound("merkle_walk", (*args, depths), [got])
     log(f"K3 merkle_walk at a TP shard's FRI walk ({bshape[0]} proofs x {depths.size} paths, "
         f"depths {top}..{int(depths.min())}, period {depths.size}): bit-equal to plain and "
         f"hashlib; wrapper {k3_ms:.4f} ms (CUDA events, mean of 20), plain {k3_plain_ms:.3f} "
         f"ms, bound {k3_bound_ms:.6f} ms ({k3_by}) [{CARD}]")
 
-    mixed, air_ids, routed_ok = routed
+    mixed, air_ids, routed_ok, _ = routed
     (bitmap, n_ok), secs, counts["routed_sharded"] = counted(
         "routed_sharded", lambda: verify_batch_routed_sharded(
             mixed, air_ids, PRODUCTION, make_mesh(SHARDS, devices=card)))
     check(torch.equal(bitmap, routed_ok) and int(n_ok) == int(routed_ok.sum()),
           "verify_batch_routed_sharded != verify_batch_routed")
+    eager["routed_sharded"] = (bitmap, n_ok)
     log(f"routed_sharded: {N_PROOFS} routed lanes over {SHARDS} shards: bitmap equal to "
         f"verify_batch_routed, {int(n_ok)} accepted; {secs:.3f} s with its ingestion; "
         f"launches {counts['routed_sharded']} [{CARD}]")
@@ -1987,7 +2022,7 @@ def phase_parallel(proofs, routed, err=None):
         record.append((name, launch_bound(name, args)))
         launch(name, device, *args)
 
-    for i in range(5):
+    for i in range(3):
         kbuild.launch = recording if i == 0 else launch  # the first proof's launches
         try:
             (proof, info), secs, made = counted(
@@ -2002,7 +2037,8 @@ def phase_parallel(proofs, routed, err=None):
         seconds.append(secs)
     counts["stwo_prover_sharded"] = made
     log(f"stwo_prover_sharded: prove_stwo_sharded(PRODUCTION, s0) over {SHARDS} shards, "
-        f"every FRI layer sharded, equal to its fixture in every field five times; "
+        f"every FRI layer sharded, equal to its fixture in every field "
+        f"{len(seconds)} times; "
         f"{seconds[0]:.4f} s first, median {statistics.median(seconds[1:]):.4f} s of the "
         f"next {len(seconds) - 1} ({min(seconds[1:]):.4f}-{max(seconds[1:]):.4f} s); "
         f"launches a proof {made}; their bound K1 "
@@ -2034,7 +2070,202 @@ def phase_parallel(proofs, routed, err=None):
     _, dry_s = timed(lambda: E.dryrun_multichip(4))
     log(f"dryrun_multichip(4) on cuda:0: dp and gspmd at dp2 x tp2, tp at dp1 x tp4, "
         f"accept every TESTING proof; {dry_s:.3f} s [{CARD}]")
-    return counts, 1e3 * statistics.median(seconds[1:])
+    return counts, 1e3 * statistics.median(seconds[1:]), eager
+
+
+def graph_stats(graphs) -> str:
+    """Capture, instantiate and pool of GraphedVerifiers, for a log line."""
+    return ", ".join(f"capture {g.capture_s:.3f} s, instantiate {g.instantiate_s:.3f} s, "
+                     f"pool {g.pool_bytes / 2**20:.1f} MiB" for g in graphs)
+
+
+def graph_launches(graphs) -> dict:
+    """The launches recorded in GraphedVerifiers, summed by kernel."""
+    return {k: sum(g.launches[k] for g in graphs) for k in graphs[0].launches}
+
+
+def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded) -> dict:
+    """(l): what the JAX package compiles as one program, captured as CUDA
+    graphs and replayed, each result held to its eager run's.
+
+    The stwo prover (``prove_stwo(graphed=True)``, graphs A and B around
+    the PoW grind) at PRODUCTION, unseeded and seeds 0-15: each proof equal
+    to its fixture and to phase (i)'s eager proof, word for word; A's and
+    B's launches together equal PATHS, and the counts over the 17 proofs
+    are the warm-up's and the capture's alone (a replay launches nothing
+    through the wrappers); capture, instantiate and pool of A and B, the
+    first call (with the capture) and the median of the 16 replays by the
+    host clock, the device's busy share of one profiled graphed proof.
+    The continuation: TESTING at 20 PoW bits, where the first chunk
+    misses, equal to the eager proof.  stark101 (``prove_stark101(graphed=
+    True)``): the golden proof and the eager one, its graph's launches
+    equal to PATHS.  Routed verify captured (``tools/build.capture``):
+    phase (i)'s bitmap and masks.  DP, TP, GSPMD and routed-sharded with
+    ``graphed=True`` on 8 shards of cuda:0: phase (j)'s bitmaps, counts
+    and masks; each shard's capture, the launches of the shard graphs
+    against PATHS, the seconds of the first call (captures included) and
+    of a second one (ingestion included, as (j) counts it), which captures
+    nothing.  Returns each graphed path's launches."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stark101 import proof as P101
+    from stark_symphony_tpu_torch.models.stark101 import prover as prover101
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import prover
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.parallel.batch import (
+        make_mesh,
+        verify_batch_dp,
+        verify_batch_gspmd,
+        verify_batch_tp,
+    )
+    from stark_symphony_tpu_torch.parallel.expert import (
+        verify_batch_routed,
+        verify_batch_routed_sharded,
+    )
+    from stark_symphony_tpu_torch.tools import build as TB
+    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
+
+    counts = {}
+    t_phase = time.perf_counter()
+
+    # the stwo prover: graph A, one host read, graph B
+    seconds = []
+    reset_counts()
+    for seed in PROVER_SEEDS:
+        (proof, _), secs = timed(lambda: E.prove_stwo(PRODUCTION, seed, graphed=True))
+        seconds.append(secs)
+        for what, want in (("its fixture", P.load_npz(str(fixture_path(PRODUCTION, seed)))),
+                           ("the eager proof", stwo_eager[seed])):
+            diff = first_difference(proof, want)
+            check(diff is None, f"graphed stwo proof (PRODUCTION, seed {seed}): "
+                  f"{diff and diff[0]} differs from {what} first at index {diff and diff[1]}")
+    made = launch_counts()
+    gp = prover.graphed_prover(PRODUCTION, from_numpy(prover.seeded_trace(PRODUCTION, None),
+                                                      "cuda"))
+    graphs = [gp.a, gp.b]
+    counts["stwo_prover_graphed"] = graph_launches(graphs)
+    check_counts("stwo_prover_graphed", counts["stwo_prover_graphed"])
+    check(made == {k: 2 * n for k, n in counts["stwo_prover_graphed"].items()}
+          and gp.continued == 0,
+          f"graphed stwo prover: {made} launched over 17 proofs, want one warm-up and one "
+          f"capture of A and B {counts['stwo_prover_graphed']}; {gp.continued} continued")
+    steady = statistics.median(seconds[1:])
+    log(f"stwo prover graphed: PRODUCTION unseeded and seeds 0-15, each equal to its fixture "
+        f"and to the eager proof in every field; first call {seconds[0]:.3f} s (one warm-up, "
+        f"capture of A, one replay, capture of B); median {steady:.4f} s of the next "
+        f"{len(seconds) - 1} ({min(seconds[1:]):.4f}-{max(seconds[1:]):.4f} s; host clock, "
+        f"synchronized), eager {prove_ms / 1e3:.4f} s (phase i); A: "
+        f"{graph_stats([gp.a])}, launches {gp.a.launches}; B: {graph_stats([gp.b])}, "
+        f"launches {gp.b.launches} [{CARD}]")
+    graph_profile("stwo_prover_graphed", lambda _: E.prove_stwo(PRODUCTION, graphed=True), None)
+
+    cfg20 = dataclasses.replace(TESTING, pow_bits=20)
+    eager20, _ = E.prove_stwo(cfg20)
+    graphed20, _ = E.prove_stwo(cfg20, graphed=True)
+    gp20 = prover.graphed_prover(cfg20, from_numpy(prover.seeded_trace(cfg20, None), "cuda"))
+    nonce = int(eager20.pow_nonce[0]) << 32 | int(eager20.pow_nonce[1])
+    check(first_difference(graphed20, eager20) is None and gp20.continued == 1
+          and nonce >= prover.n_candidates(cfg20),
+          f"graphed TESTING proof at 20 PoW bits: nonce {nonce}, continued "
+          f"{gp20.continued}, first difference {first_difference(graphed20, eager20)}")
+    log(f"stwo prover graphed, TESTING at 20 PoW bits: graph A's chunk of "
+        f"{prover.n_candidates(cfg20)} missed, the eager grind carried on to nonce {nonce}; the "
+        "proof equals the eager one in every field")
+
+    golden = P101.load_json(str(E.STARK101_GOLDEN))
+    (eager101, info_e), eager101_s = timed(E.prove_stark101)
+    reset_counts()
+    s101 = []
+    for _ in range(6):
+        (proof101, info), secs = timed(lambda: E.prove_stark101(graphed=True))
+        s101.append(secs)
+        for what, want in (("golden_proof.json", golden), ("the eager proof", eager101)):
+            check(all(np.array_equal(a, b) for a, b in zip(TB.tree_leaves(tuple(proof101)),
+                                                           TB.tree_leaves(tuple(want))))
+                  and info == info_e, f"graphed stark101 proof != {what}")
+    body = next(iter(prover101.GRAPHS.entries.values()))
+    counts["stark101_prove_graphed"] = body.launches
+    check_counts("stark101_prove_graphed", body.launches)
+    check(launch_counts() == {k: 2 * n for k, n in body.launches.items()},
+          f"graphed stark101 prover: {launch_counts()} launched over 6 proofs")
+    log(f"stark101 prover graphed: equal to golden_proof.json and to the eager proof, query "
+        f"index {info['idx']}; first call {s101[0]:.3f} s, median "
+        f"{statistics.median(s101[1:]):.4f} s of the next {len(s101) - 1} (eager "
+        f"{eager101_s:.4f} s); {graph_stats([body])}, launches {body.launches} [{CARD}]")
+
+    mixed, air_ids, routed_ok, routed_masks = routed
+    batch = P.to_torch(mixed, "cuda")
+    ids = torch.as_tensor(air_ids, dtype=torch.int64, device="cuda")
+    g = TB.capture(lambda b, i: verify_batch_routed(b, i, PRODUCTION, with_masks=True),
+                   (batch, ids), warmup=1)
+    ok, masks = g(batch, ids)
+    check(torch.equal(ok, routed_ok) and list(masks) == list(routed_masks)
+          and all(torch.equal(m, routed_masks[k]) for k, m in masks.items()),
+          "graphed verify_batch_routed != phase (i)'s bitmap or masks")
+    counts["routed_graphed"] = g.launches
+    check_counts("routed_graphed", g.launches)
+    routed_ms, runs = batch_ms(lambda b: g(b, ids), batch)
+    log(f"routed graphed: {N_PROOFS} lanes, bitmap and all {len(masks)} masks equal to phase "
+        f"(i)'s; {routed_ms:.3f} ms a batch (CUDA events, median of {len(runs)}); "
+        f"{graph_stats([g])}, launches {g.launches} [{CARD}]")
+    del g, batch, ok, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    card = ["cuda:0"] * SHARDS
+    host = tamper_lanes(E.production_batch(N_PROOFS, proofs), PROD_TAMPERS)
+    sub = P.map_fields(lambda x: x[:512], host)
+    tp_mesh = make_mesh(SHARDS, tp=4, devices=card)
+    cases = [  # (path, its launches' PATHS row, mesh, call)
+        ("dp", "dp_graphed", make_mesh(SHARDS, devices=card),
+         lambda m: verify_batch_dp(host, PRODUCTION, m, with_masks=True, graphed=True)),
+        ("tp", "tp_graphed", tp_mesh,
+         lambda m: verify_batch_tp(sub, PRODUCTION, m, with_masks=True, graphed=True)),
+        ("gspmd", None, tp_mesh,
+         lambda m: verify_batch_gspmd(sub, PRODUCTION, m, with_masks=True, graphed=True)),
+        ("routed_sharded", "routed_sharded_graphed", make_mesh(SHARDS, devices=card),
+         lambda m: verify_batch_routed_sharded(mixed, air_ids, PRODUCTION, m, graphed=True)),
+    ]
+    for name, row, mesh, call in cases:
+        before = mesh.graphs.captures
+        first, first_s = timed(lambda: call(mesh))
+        again, again_s = timed(lambda: call(mesh))
+        check(mesh.graphs.captures == before + (row is not None),
+              f"{name} graphed: {mesh.graphs.captures - before} captures, want "
+              f"{int(row is not None)}")
+        want = sharded[name]
+        for got in (first, again):
+            check(torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]),
+                  f"{name} graphed: bitmap or count != phase (j)'s")
+            if len(want) > 2:
+                check(list(got[2]) == list(want[2])
+                      and all(torch.equal(m, want[2][k]) for k, m in got[2].items()),
+                      f"{name} graphed: masks != phase (j)'s")
+        shards = list(mesh.graphs.entries.values())[-1].graphs
+        if row is not None:
+            counts[row] = graph_launches(shards)
+            check_counts(row, counts[row])
+        log(f"{name} graphed on {SHARDS} shards of cuda:0: bitmap, count {int(first[1])}"
+            f"{' and masks' if len(want) > 2 else ''} equal to phase (j)'s twice; first call "
+            f"{first_s:.3f} s ({'the captures' if row else 'tp graphs replayed'}), second "
+            f"{again_s:.3f} s with its ingestion; shards' capture + instantiate "
+            f"{', '.join(f'{g.capture_s + g.instantiate_s:.3f}' for g in shards)} s, pools "
+            f"{sum(g.pool_bytes for g in shards) / 2**20:.1f} MiB; launches in the shard "
+            f"graphs {graph_launches(shards)} [{CARD}]")
+        if name != "tp":  # gspmd replays tp's graphs; free the others' pools
+            mesh.graphs.entries.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"phase (l): {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def phase_multi_gpu(proofs, per_device: int = 1024):
@@ -2083,6 +2314,19 @@ def phase_multi_gpu(proofs, per_device: int = 1024):
     check(int(n_ok) == total - n_bad, f"dp over {n_gpu} devices: {int(n_ok)} accepted")
     log(f"dp scaling, one process: {per_device} lanes a device, {times[1]:.3f} s on one "
         f"device, {times[n_gpu]:.3f} s on {n_gpu}; efficiency {times[1] / times[n_gpu]:.3f} "
+        f"[{CARD} x {n_gpu}]")
+    graphed = {}
+    for n in (1, n_gpu):
+        sub = batch if n == n_gpu else one
+        mesh = make_mesh(n)
+        verify_batch_dp(sub, PRODUCTION, mesh, graphed=True)  # a graph a device
+        (bitmap, n_ok), graphed[n] = timed(
+            lambda: verify_batch_dp(sub, PRODUCTION, mesh, graphed=True))
+        check(torch.equal(bitmap, want[:n * per_device]), f"graphed dp over {n} devices != verify")
+        mesh.graphs.entries.clear()
+    log(f"dp scaling graphed, one process: {per_device} lanes a device, a second call "
+        f"{graphed[1]:.3f} s on one device, {graphed[n_gpu]:.3f} s on {n_gpu}; efficiency "
+        f"{graphed[1] / graphed[n_gpu]:.3f} (eager {times[1] / times[n_gpu]:.3f}) "
         f"[{CARD} x {n_gpu}]")
     runs = multi_process_dp(total, n_gpu, runs=2)  # each process sees every card
     slowest = max(r[3] for r in runs)
@@ -2335,18 +2579,20 @@ def main() -> int:
     stamp("(g)")
     counts.update(phase_graphs(proofs))  # (h)
     stamp("(h)")
-    prover_counts, prove_ms, routed = phase_stwo_prover(proofs)  # (i)
+    prover_counts, prove_ms, routed, stwo_proofs = phase_stwo_prover(proofs)  # (i)
     counts.update(prover_counts)
     phase_prover_timings(rng, errs)
     phase_profile("stwo_prover", lambda _: E.prove_stwo(), None, prove_ms)
     stamp("(i)")
-    sharded_counts, sharded_ms = phase_parallel(proofs, routed, errs)  # (j)
+    sharded_counts, sharded_ms, sharded = phase_parallel(proofs, routed, errs)  # (j)
     counts.update(sharded_counts)
     phase_profile("stwo_prover_sharded", lambda _: E.prove_stwo_sharded(), None, sharded_ms)
     phase_multi_gpu(proofs)
     stamp("(j)")
     counts.update(phase_tools(proofs))  # (k)
     stamp("(k)")
+    counts.update(phase_compiled(proofs, stwo_proofs, prove_ms, routed, sharded))  # (l)
+    stamp("(l)")
 
     largest = {}  # per kernel, its last timed shape: the path's largest call
     for name, *row in rows:

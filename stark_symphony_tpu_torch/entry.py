@@ -15,8 +15,9 @@ device every SHA-256, Merkle and fused-stage call of either path runs in
 the kernels of ``ops/cuda``.  ``entry_stark101()`` is the same for the
 batched stark101 verifier, and ``prove_stark101()`` runs the stark101
 prover; ``prove_stwo()`` runs the stwo prover on the trace of a proof
-cache entry, and ``prove_stwo_sharded()`` the same with its FRI phase
-sharded over a mesh.  ``dryrun_multichip()`` drives the sharded verifiers
+cache entry (both provers take ``graphed=True``, as JAX compiles them),
+and ``prove_stwo_sharded()`` the same with its FRI phase sharded over a
+mesh.  ``dryrun_multichip()`` drives the sharded verifiers
 (DP, the GSPMD counterpart, TP) at TESTING size, the counterpart of
 ``__graft_entry__.dryrun_multichip``.
 """
@@ -112,17 +113,20 @@ def entry_stark101(n_proofs: int = 4096, device: str = "cuda", graphed: bool = F
     return _graph(fn, batch, graphed)
 
 
-def prove_stark101(device: str = "cuda"):
+def prove_stark101(device: str = "cuda", graphed: bool = False):
     """The stark101 prover at the reference configuration on `device`:
-    (Stark101Proof of numpy words, {"idx": the query index})."""
-    return prover101.prove(Stark101Config(), device=device)
+    (Stark101Proof of numpy words, {"idx": the query index}); `graphed`:
+    its body replays one CUDA graph, captured at the first call."""
+    return prover101.prove(Stark101Config(), device=device, graphed=graphed)
 
 
-def prove_stwo(cfg=PRODUCTION, seed=None, air: str = "wide_fibonacci", device: str = "cuda"):
+def prove_stwo(cfg=PRODUCTION, seed=None, air: str = "wide_fibonacci", device: str = "cuda",
+               graphed: bool = False):
     """The stwo prover on `device`, on the trace of the proof cache's (cfg,
     seed, air) entry (``prover.seeded_trace``): (StwoProof of numpy words,
-    {})."""
-    return prover.prove(cfg, prover.seeded_trace(cfg, seed, air), air, device)
+    {}); `graphed`: two CUDA graphs around the PoW grind
+    (``prover.GraphedProver``), captured once per (cfg, air, device)."""
+    return prover.prove(cfg, prover.seeded_trace(cfg, seed, air), air, device, graphed)
 
 
 def prove_stwo_sharded(cfg=PRODUCTION, seed=None, n_shards: int = 8, device: str = "cuda",

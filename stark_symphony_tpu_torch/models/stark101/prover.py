@@ -17,6 +17,10 @@ it emits the reference's proof word for word
 * FRI folds in value space: u_i = (v_i + v_{i+n/2})/2 + beta (v_i -
   v_{i+n/2}) / (2 x_i).
 * Merkle trees are built level by level (``merkle.build_tree``).
+* With ``graphed=True`` the whole body (``_prove_body``) is one CUDA
+  graph, as the JAX package compiles ``_prove_jit``: its host tables go
+  to each device once (``_device_tables``), and the query index is read
+  after the replay.
 
 On a CUDA device every SHA-256 call runs in kernel K1 (37 launches: 11
 leaf batches and the single-lane transcript) and every tree level in K2
@@ -35,6 +39,7 @@ from ...ops import merkle
 from ...ops.ntt import eval_on_coset, ntt
 from ...ops.sha256 import sha256_words
 from ...ops.u32 import to_numpy
+from ...tools import build as TB
 from . import channel as ch
 from .config import Stark101Config
 from .proof import Stark101Proof
@@ -97,23 +102,34 @@ def _host_tables(cfg: Stark101Config):
     return np.array(xs, np.uint32), inv0, inv1, inv2, xinv_layers
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(cfg: Stark101Config, device: torch.device):
+    """``_host_tables(cfg)`` as int64 tensors on `device`, sent there once
+    per (cfg, device), so a proof's body copies nothing from the host (a
+    CUDA graph may not capture a host-to-device copy)."""
+    xs, inv0, inv1, inv2, xinv = _host_tables(cfg)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+    return dev(xs), dev(inv0), dev(inv1), dev(inv2), tuple(dev(x) for x in xinv)
+
+
 def _take(values, pos):
     """values[..., pos] for a word-tensor position (...)."""
     return torch.take_along_dim(values, pos[..., None], dim=-1)[..., 0]
 
 
-def prove(cfg: Stark101Config = Stark101Config(), trace=None, device="cuda"):
-    """Make a proof on `device`.  Returns (Stark101Proof of numpy uint32
-    words, {"idx": the query index}), as the JAX package's prove does."""
-    if trace is None:
-        trace = generate_trace(cfg)
+def _prove_body(cfg: Stark101Config, trace):
+    """The proof of `trace` (1023,) words on its device: (Stark101Proof of
+    word tensors, the query index as a 0-d word tensor).  It reads
+    nothing to the host and makes no tensor from host data once the
+    device tables are warm (``_device_tables``, ``ntt._device_tables``)."""
     n_ex = cfg.domain_ex_size
     h = cfg.coset_gen
+    xs, inv0, inv1, inv2, xinv = _device_tables(cfg, trace.device)
 
-    def dev(a):
-        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
-
-    coeffs = interpolate_trace(cfg, dev(trace))
+    coeffs = interpolate_trace(cfg, trace)
     p_ev = eval_on_coset(coeffs, F.GEN, h, n_out=n_ex)  # values on GEN * <h>
     p_levels, p_root = _tree(p_ev)
 
@@ -124,19 +140,17 @@ def prove(cfg: Stark101Config = Stark101Config(), trace=None, device="cuda"):
     state, a2 = ch.draw(state, F.Q)
 
     # Composition polynomial values on the coset (pointwise quotients)
-    xs_h, inv0_h, inv1_h, inv2_h, xinv_h = _host_tables(cfg)
-    xs = dev(xs_h)
     f_x = p_ev
     f_gx = torch.roll(p_ev, -cfg.idx_offset, dims=-1)
     f_ggx = torch.roll(p_ev, -2 * cfg.idx_offset, dims=-1)
-    p0 = F.f_mul(F.f_sub(f_x, 1), dev(inv0_h))
-    p1 = F.f_mul(F.f_sub(f_x, cfg.boundary1), dev(inv1_h))
+    p0 = F.f_mul(F.f_sub(f_x, 1), inv0)
+    p1 = F.f_mul(F.f_sub(f_x, cfg.boundary1), inv1)
     num0 = F.f_sub(f_ggx, F.f_add(F.f_mul(f_x, f_x), F.f_mul(f_gx, f_gx)))
     num1 = F.f_mul(
         F.f_mul(F.f_sub(xs, cfg.g_pow(1021)), F.f_sub(xs, cfg.g_pow(1022))),
         F.f_sub(xs, cfg.g_pow(1023)),
     )
-    p2 = F.f_mul(F.f_mul(num0, num1), dev(inv2_h))
+    p2 = F.f_mul(F.f_mul(num0, num1), inv2)
     cp_ev = F.f_add(F.f_add(F.f_mul(p0, a0), F.f_mul(p1, a1)), F.f_mul(p2, a2))
 
     # FRI: fold down to a constant, committing each layer but the last
@@ -152,7 +166,7 @@ def prove(cfg: Stark101Config = Stark101Config(), trace=None, device="cuda"):
         half = cur_vals.shape[-1] // 2
         va, vb = cur_vals[..., :half], cur_vals[..., half:]
         even = F.f_mul(F.f_add(va, vb), inv2)
-        odd = F.f_mul(F.f_mul(F.f_sub(va, vb), inv2), dev(xinv_h[layer]))
+        odd = F.f_mul(F.f_mul(F.f_sub(va, vb), inv2), xinv[layer])
         cur_vals = F.f_add(even, F.f_mul(odd, beta))
         fri_values.append(cur_vals)
         if layer < cfg.n_fri_layers - 1:
@@ -182,15 +196,38 @@ def prove(cfg: Stark101Config = Stark101Config(), trace=None, device="cuda"):
         cpb_sibs.append(merkle.gather_path(fri_levels[i], sib_idx))
 
     proof = Stark101Proof(
-        p_mt_root=to_numpy(p_root),
-        evals=to_numpy(torch.stack(evals, dim=-1)),
-        eval_sibs=to_numpy(torch.stack(eval_sibs, dim=-3)),
-        fri_roots=to_numpy(torch.stack(fri_roots, dim=-2)),
-        fri_betas=to_numpy(torch.stack(fri_betas, dim=-1)),
-        cpa_evals=to_numpy(torch.stack(cpa_evals, dim=-1)),
-        cpa_sibs=tuple(to_numpy(s) for s in cpa_sibs),
-        cpb_evals=to_numpy(torch.stack(cpb_evals, dim=-1)),
-        cpb_sibs=tuple(to_numpy(s) for s in cpb_sibs),
-        last=to_numpy(last),
+        p_mt_root=p_root,
+        evals=torch.stack(evals, dim=-1),
+        eval_sibs=torch.stack(eval_sibs, dim=-3),
+        fri_roots=torch.stack(fri_roots, dim=-2),
+        fri_betas=torch.stack(fri_betas, dim=-1),
+        cpa_evals=torch.stack(cpa_evals, dim=-1),
+        cpa_sibs=tuple(cpa_sibs),
+        cpb_evals=torch.stack(cpb_evals, dim=-1),
+        cpb_sibs=tuple(cpb_sibs),
+        last=last,
     )
-    return proof, {"idx": int(idx)}
+    return proof, idx
+
+
+GRAPHS = TB.GraphCache()  # the graphed body by cfg and the trace's spec
+
+
+def prove(cfg: Stark101Config = Stark101Config(), trace=None, device="cuda",
+          graphed: bool = False):
+    """Make a proof on `device`.  Returns (Stark101Proof of numpy uint32
+    words, {"idx": the query index}), as the JAX package's prove does.
+    `graphed`: replay the body as one CUDA graph (``tools/build.capture``),
+    captured once per (cfg, device); the proof is the same."""
+    if trace is None:
+        trace = generate_trace(cfg)
+    t = torch.from_numpy(np.asarray(trace, np.int64)).to(device)
+    if graphed:
+        body = GRAPHS.get(cfg, (t,), lambda: TB.capture(lambda x: _prove_body(cfg, x), (t,),
+                                                         warmup=1))
+        proof, idx = body.replay(t)
+    else:
+        proof, idx = _prove_body(cfg, t)
+    words = Stark101Proof(*(tuple(to_numpy(s) for s in x) if isinstance(x, tuple)
+                            else to_numpy(x) for x in proof))
+    return words, {"idx": int(idx)}

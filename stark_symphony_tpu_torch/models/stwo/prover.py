@@ -57,6 +57,7 @@ from ...ops.circle_fft import (
 )
 from ...ops.sha256 import sha256_words
 from ...ops.u32 import M32, WORD, bit_reverse, byte_swap32, const, from_numpy, lt64, to_numpy
+from ...tools import build as TB
 from . import channel as ch
 from .config import StwoConfig
 from .constraints import TRACE_RULES, lde_rule
@@ -178,32 +179,46 @@ def _commit_leaves(leaf_words_natural, log: int):
     return levels, levels[-1][0]
 
 
-def pow_grind(cfg: StwoConfig, state: ch.ChannelState) -> torch.Tensor:
-    """The smallest 64-bit nonce whose mix into `state` meets the PoW
-    target, as (hi, lo) words on the state's device.
+def n_candidates(cfg: StwoConfig) -> int:
+    """The PoW candidates a chunk: 8 << pow_bits, within [4096, 65536]."""
+    return min(1 << 16, max(4096, 8 << cfg.pow_bits))
 
-    Candidates go in chunks of n_cand nonces, each chunk one SHA-256 of
-    (digest || hi || lo) over n_cand lanes and one read of the first hit
-    (or none) to the host; lo carries into hi when it wraps, so the whole
-    2^64 space is searched, in the JAX prover's order."""
-    n_cand = min(1 << 16, max(4096, 8 << cfg.pow_bits))
+
+def _grind_chunk(cfg: StwoConfig, state: ch.ChannelState, start: int) -> torch.Tensor:
+    """One chunk of the PoW search, nonces start .. start + n_cand - 1 (lo
+    wrapping within its word, as JAX's uint32 add does): one SHA-256 of
+    (digest || hi || lo) over n_cand lanes.  Returns (found, hi, lo) as 3
+    words on the state's device, (hi, lo) the first hit where found is 1;
+    it reads nothing to the host."""
+    n_cand = n_candidates(cfg)
     target = cfg.pow_target
     dev = state.digest.device
-    offsets = torch.arange(n_cand, dtype=WORD, device=dev)
+    nonces = (torch.arange(n_cand, dtype=WORD, device=dev) + (start & M32)) & M32
+    his = torch.full((n_cand,), (start >> 32) & M32, dtype=WORD, device=dev)
     cand = ch.ChannelState(state.digest.expand(n_cand, 8), state.counter.expand(n_cand))
-    start_hi = start_lo = 0
+    digest = ch.mix_u64(cand, his, nonces).digest
+    ok = lt64(byte_swap32(digest[:, 7]), byte_swap32(digest[:, 6]),
+              target >> 32, target & M32)
+    # gather, not nonces[first]: indexing by a 0-d tensor reads it to the host
+    first = torch.argmax(ok.to(torch.int32), dim=0, keepdim=True)
+    return torch.cat([ok.any().to(WORD)[None], his[:1], nonces.gather(0, first)])
+
+
+def pow_grind(cfg: StwoConfig, state: ch.ChannelState, start: int = 0) -> torch.Tensor:
+    """The smallest 64-bit nonce from `start` on whose mix into `state`
+    meets the PoW target, as (hi, lo) words on the state's device.
+
+    Candidates go in chunks of n_cand nonces (``_grind_chunk``), each with
+    one read of its found flag to the host; the search carries lo into hi
+    when lo wraps, so the whole 2^64 space is searched, in the JAX
+    prover's order.  JAX's search starts at 0; the graphed prover, whose
+    first chunk ran in its graph, carries on from n_cand."""
+    n_cand = n_candidates(cfg)
     while True:
-        nonces = offsets + start_lo
-        his = torch.full((n_cand,), start_hi, dtype=WORD, device=dev)
-        digest = ch.mix_u64(cand, his, nonces).digest
-        ok = lt64(byte_swap32(digest[:, 7]), byte_swap32(digest[:, 6]),
-                  target >> 32, target & M32)
-        first = int(torch.where(ok.any(), torch.argmax(ok.to(torch.int32)), -1))
-        if first >= 0:
-            return torch.stack([his[first], nonces[first]])
-        start_lo = (start_lo + n_cand) & M32
-        if start_lo == 0:
-            start_hi = (start_hi + 1) & M32
+        word = _grind_chunk(cfg, state, start)
+        if bool(word[0]):
+            return word[1:]
+        start = (start + n_cand) & ((1 << 64) - 1)
 
 
 def _qm31_powers(alpha, n: int):
@@ -325,13 +340,17 @@ def _finish(cfg: StwoConfig, state: ch.ChannelState, pre: PreFri, layers, roots,
     order, its tree levels as ``merkle.build_tree`` gives them), on the
     transcript's device; roots: their roots; last: the values after the
     last fold.  Returns the StwoProof of word tensors."""
+    state = ch.mix_words(state, last[0])
+    return _decommit(cfg, state, pre, layers, roots, last[0], pow_grind(cfg, state))
+
+
+def _decommit(cfg: StwoConfig, state: ch.ChannelState, pre: PreFri, layers, roots,
+              fri_last, nonce) -> StwoProof:
+    """Stage 9 after the grind: mix the nonce (hi, lo) into `state` (the
+    transcript after fri_last's mix), draw the queries and gather the
+    decommitments; the StwoProof of word tensors."""
     lde_log = cfg.lde_log_size
     dev = pre.trace_lde.device
-    fri_last = last[0]
-    state = ch.mix_words(state, fri_last)
-
-    # 8. PoW
-    nonce = pow_grind(cfg, state)
     state = ch.mix_u64(state, nonce[0], nonce[1])
 
     # 9. queries and decommitments (bit-reversed leaf indices)
@@ -377,16 +396,14 @@ def fri_fold(a, b, tw_inv, alpha):
     return F.qm31_add(f0, F.qm31_mul(alpha.expand(f1.shape), f1))
 
 
-def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
-    """Stages 1-9 on `trace` (C, T) words; a StwoProof of word tensors on
-    the trace's device."""
+def _commit_fri(cfg: StwoConfig, pre: PreFri):
+    """Stage 7: commit each FRI layer, draw its alpha and fold.  Returns
+    (state, layers, roots, last) as ``_finish`` takes them."""
     lde_log = cfg.lde_log_size
-    pre = _pre_fri(cfg, trace, air)
     state = ch.ChannelState(pre.state_digest, pre.state_counter)
-
-    # 7. FRI: the fold twiddles are the LDE domain's inverse tables at
-    # every layer (y at the circle fold, the line levels after it)
-    _, tw_inv = device_twiddles(lde_log, trace.device)
+    # the fold twiddles are the LDE domain's inverse tables at every layer
+    # (y at the circle fold, the line levels after it)
+    _, tw_inv = device_twiddles(lde_log, pre.first_layer.device)
     layers, roots = [], []
     cur = pre.first_layer
     log = lde_log
@@ -400,7 +417,83 @@ def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
         cur = fri_fold(cur[:half], cur[half:], tw_inv[lde_log - log][:half], alpha)
         log -= 1
     # last layer: a constant polynomial
-    return _finish(cfg, state, pre, layers, roots, cur)
+    return state, layers, roots, cur
+
+
+def _prove(cfg: StwoConfig, trace, air: str) -> StwoProof:
+    """Stages 1-9 on `trace` (C, T) words; a StwoProof of word tensors on
+    the trace's device."""
+    pre = _pre_fri(cfg, trace, air)
+    state, layers, roots, last = _commit_fri(cfg, pre)
+    return _finish(cfg, state, pre, layers, roots, last)
+
+
+class SegmentA(NamedTuple):
+    """What graph A leaves for the grind and for graph B."""
+
+    pre: PreFri
+    state: ch.ChannelState  # after fri_last's mix
+    layers: list
+    roots: list
+    last: torch.Tensor
+    grind: torch.Tensor  # the first chunk's (found, hi, lo)
+
+
+def _segment_a(cfg: StwoConfig, trace, air: str) -> SegmentA:
+    """Stages 1-7, fri_last's mix and the first chunk of the PoW search:
+    everything before the prover's one host read."""
+    pre = _pre_fri(cfg, trace, air)
+    state, layers, roots, last = _commit_fri(cfg, pre)
+    state = ch.mix_words(state, last[0])
+    return SegmentA(pre, state, layers, roots, last, _grind_chunk(cfg, state, 0))
+
+
+def _segment_b(cfg: StwoConfig, a: SegmentA, nonce) -> StwoProof:
+    """Stage 9 on segment A's outputs and the nonce (hi, lo)."""
+    return _decommit(cfg, a.state, a.pre, a.layers, a.roots, a.last[0], nonce)
+
+
+class GraphedProver:
+    """The prover as two CUDA graphs around the grind, as the JAX package
+    compiles ``_prove_jit`` with its grind inside (a graph cannot hold
+    the grind's data-dependent loop).
+
+    Graph A (``_segment_a``) runs on the trace through the first PoW
+    chunk; one host read takes its 3 words (found, hi, lo); where the
+    chunk found nothing, ``pow_grind`` carries on eagerly from chunk 2;
+    graph B (``_segment_b``) reads A's outputs in place, shares A's memory
+    pool and takes the nonce as its static input.  B is captured at the
+    first call, once A has run.  ``continued`` counts the calls whose
+    first chunk missed.  On the CPU the same segments run without graphs."""
+
+    def __init__(self, cfg: StwoConfig, air: str, trace):
+        self.cfg = cfg
+        self.a = TB.capture(lambda t: _segment_a(cfg, t, air), (trace,), warmup=1)
+        self.b = None
+        self.continued = 0
+
+    def __call__(self, trace) -> StwoProof:
+        a = self.a.replay(trace)
+        found, _, _ = a.grind.tolist()  # the one host read
+        if found:
+            nonce = a.grind[1:]
+        else:
+            self.continued += 1
+            nonce = pow_grind(self.cfg, a.state, start=n_candidates(self.cfg))
+        if self.b is None:
+            # self.a.out: A's graph outputs on the card, its last result on the CPU
+            self.b = TB.capture(lambda n: _segment_b(self.cfg, self.a.out, n), (nonce,),
+                                warmup=1, pool=self.a.pool)
+        return self.b.replay(nonce)
+
+
+GRAPHS = TB.GraphCache()  # GraphedProver by (cfg, air) and the trace's spec
+
+
+def graphed_prover(cfg: StwoConfig, trace, air: str = "wide_fibonacci") -> GraphedProver:
+    """The GraphedProver of (cfg, air) for `trace`'s shape and device,
+    captured at its first use."""
+    return GRAPHS.get((cfg, air), (trace,), lambda: GraphedProver(cfg, air, trace))
 
 
 def _to_numpy_proof(proof: StwoProof) -> StwoProof:
@@ -409,10 +502,16 @@ def _to_numpy_proof(proof: StwoProof) -> StwoProof:
                        for x in proof))
 
 
-def prove(cfg: StwoConfig, trace=None, air: str = "wide_fibonacci", device="cuda"):
+def prove(cfg: StwoConfig, trace=None, air: str = "wide_fibonacci", device="cuda",
+          graphed: bool = False):
     """Make one stwo proof on `device`.  Returns (StwoProof of numpy uint32
     arrays, {}), as the JAX package's prove does; `trace` (C, T) uint32
-    defaults to generate_trace(cfg, air=air)."""
+    defaults to generate_trace(cfg, air=air).  `graphed`: replay the
+    prover's graphs (``GraphedProver``), captured once per (cfg, air,
+    device); the proof is the same."""
     if trace is None:
         trace = generate_trace(cfg, air=air)
-    return _to_numpy_proof(_prove(cfg, from_numpy(trace, device), air)), {}
+    t = from_numpy(trace, device)
+    if graphed:
+        return _to_numpy_proof(graphed_prover(cfg, t, air)(t)), {}
+    return _to_numpy_proof(_prove(cfg, t, air)), {}

@@ -25,7 +25,10 @@ int64), and with ``with_masks`` also the per-stage masks of the whole
 verifier, each (B,) bool on the first device: a TP mask is the AND of its
 query shards' masks, as the unsharded mask is the AND over all queries.
 In a multi-process run the bitmap is this process's lanes and n_ok counts
-every process's.
+every process's.  With ``graphed=True`` each shard replays its verify as
+a CUDA graph (``Mesh.capture``), captured once per (path, cfg, air,
+linkage, query slices and input specs) and cached on the mesh, as JAX
+compiles its ``shard_map`` once; each process graphs its own shards.
 """
 
 from __future__ import annotations
@@ -48,12 +51,13 @@ def make_mesh(n_devices: int | None = None, tp: int = 1, devices=None,
     falls back to the CPU.  `process_axis` names the axis that also spans
     the process group (``utils/distributed.global_mesh`` passes "dp").
 
-    One thread issues every shard's work, and a shard's verify is
-    about a hundred thousand eager launches, so a mesh over several GPUs
-    in one process is bound by the host's launch rate (PERF.md measures
-    its scaling) until each shard replays a CUDA graph.  For DP over
-    several GPUs run one process a GPU (``utils/distributed``: each
-    process's ``global_mesh`` covers its own card)."""
+    One thread issues every shard's work, and a shard's eager verify is
+    about a hundred thousand launches, so a mesh over several GPUs in one
+    process is bound by the host's launch rate (PERF.md measures its
+    scaling) unless each shard replays a CUDA graph (``graphed=True``).
+    For DP over several GPUs run one process a GPU
+    (``utils/distributed``: each process's ``global_mesh`` covers its own
+    card)."""
     if devices is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
             raise RuntimeError("make_mesh: no CUDA device; pass devices= to build a "
@@ -108,14 +112,27 @@ def _gathered_masks(mesh: Mesh, masks: list, axis: str) -> dict:
     return {k: unshard(mesh, [m[k] for m in masks], axis) for k in masks[0]}
 
 
+def run_shards(mesh: Mesh, graphed: bool, key, fn, *sharded) -> list:
+    """``mesh.run(fn, *sharded)``, or with `graphed` the replay of fn's
+    shard graphs (``Mesh.capture``), captured at the first call for `key`
+    and these shards' input specs and kept in ``mesh.graphs``."""
+    if not graphed:
+        return mesh.run(fn, *sharded)
+    return mesh.graphs.get(key, sharded, lambda: mesh.capture(fn, *sharded)).run(*sharded)
+
+
 def verify_batch_dp(batch, cfg, mesh: Mesh, air="wide_fibonacci",
                     linkage: str = "reference", axis_name: str = "dp",
-                    with_masks: bool = False):
+                    with_masks: bool = False, graphed: bool = False):
     """DP: `batch` (numpy, leading axis B) split over `axis_name`, each
     shard verified by the standard verifier, the count psum'd.  Returns
-    (bitmap (B,), n_accepted), and the masks with `with_masks`."""
-    results = mesh.run(lambda b: verifier.verify(b, cfg, air, linkage),
-                       shard_batch(batch, mesh, axis_name))
+    (bitmap (B,), n_accepted), and the masks with `with_masks`.
+    `graphed`: each shard replays its verify's CUDA graph, as JAX runs
+    its compiled ``shard_map``; the ingestion and the collectives stay
+    outside the graphs."""
+    results = run_shards(mesh, graphed, ("dp", cfg, air, linkage),
+                         lambda b: verifier.verify(b, cfg, air, linkage),
+                         shard_batch(batch, mesh, axis_name))
     bitmaps = [ok for ok, _ in results]
     out = unshard(mesh, bitmaps, axis_name), accept_count(mesh, bitmaps, axis_name)
     if with_masks:
@@ -148,12 +165,14 @@ def _all_shards(mesh: Mesh, oks: list, axis: str) -> list:
 
 
 def _verify_query_split(batch, cfg, mesh: Mesh, air, linkage, batch_axis, query_axis,
-                        query_slices, with_masks):
+                        query_slices, with_masks, graphed):
     """(bitmap, n_accepted[, masks]) with shard i verifying query_slices[i]
     of its batch slice; a proof (and each stage's mask) holds where every
-    shard of its query group holds it."""
-    results = mesh.run(lambda b, qs: verifier.verify(b, cfg, air, linkage, query_slice=qs),
-                       _proof_slices(batch, mesh, batch_axis, query_slices), query_slices)
+    shard of its query group holds it.  TP and GSPMD share their shard
+    graphs where their query slices are the same."""
+    results = run_shards(mesh, graphed, ("query_split", cfg, air, linkage),
+                         lambda b, qs: verifier.verify(b, cfg, air, linkage, query_slice=qs),
+                         _proof_slices(batch, mesh, batch_axis, query_slices), query_slices)
     ok_all = _all_shards(mesh, [ok for ok, _ in results], query_axis)
     out = unshard(mesh, ok_all, batch_axis), accept_count(mesh, ok_all, batch_axis)
     if with_masks:
@@ -166,35 +185,37 @@ def _verify_query_split(batch, cfg, mesh: Mesh, air, linkage, batch_axis, query_
 
 def verify_batch_tp(batch, cfg, mesh: Mesh, air="wide_fibonacci",
                     linkage: str = "reference", batch_axis: str = "dp",
-                    query_axis: str = "tp", with_masks: bool = False):
+                    query_axis: str = "tp", with_masks: bool = False,
+                    graphed: bool = False):
     """TP over the query axis: `batch` (numpy) split over (batch_axis,
     query_axis), every shard verifying its queries; a proof is accepted
     where every query shard accepts.  cfg.n_queries must be divisible by
     the query axis's size.  Returns (bitmap (B,), n_accepted), and the
-    masks with `with_masks`."""
+    masks with `with_masks`; `graphed` as in verify_batch_dp."""
     tp = mesh.shape[query_axis]
     if cfg.n_queries % tp:
         raise ValueError(f"n_queries={cfg.n_queries} not divisible by tp={tp}")
     n_local = cfg.n_queries // tp
     slices = [(q, n_local) for q in mesh.axis_index(query_axis)]
     return _verify_query_split(batch, cfg, mesh, air, linkage, batch_axis, query_axis, slices,
-                               with_masks)
+                               with_masks, graphed)
 
 
 def verify_batch_gspmd(batch, cfg, mesh: Mesh, air="wide_fibonacci",
                        linkage: str = "reference", batch_axis: str = "dp",
-                       query_axis: str = "tp", with_masks: bool = False):
+                       query_axis: str = "tp", with_masks: bool = False,
+                       graphed: bool = False):
     """DP + TP as the JAX package's GSPMD path partitions it: the batch over
     `batch_axis`, the per-query work over `query_axis`.  PyTorch has no SPMD
     partitioner, so this runs the split of ``verify_batch_tp`` by hand, with
     the kernels on.  Where the axis does not divide the queries (TESTING's
     one query over tp = 2), which XLA splits unevenly, every shard of the
     query axis verifies all of them.  Returns (bitmap (B,), n_accepted),
-    and the masks with `with_masks`."""
+    and the masks with `with_masks`; `graphed` as in verify_batch_dp."""
     tp = mesh.shape[query_axis]
     if cfg.n_queries % tp:
         slices = [(0, cfg.n_queries)] * mesh.size
     else:
         slices = [(q, cfg.n_queries // tp) for q in mesh.axis_index(query_axis)]
     return _verify_query_split(batch, cfg, mesh, air, linkage, batch_axis, query_axis, slices,
-                               with_masks)
+                               with_masks, graphed)

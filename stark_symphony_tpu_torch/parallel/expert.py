@@ -20,7 +20,7 @@ import torch
 from ..models.stwo import verifier
 from ..models.stwo.config import StwoConfig
 from ..models.stwo.constraints import AIR_IDS
-from .batch import accept_count, shard_batch, shard_rows
+from .batch import accept_count, run_shards, shard_batch, shard_rows
 from .mesh import Mesh, unshard
 
 
@@ -31,17 +31,22 @@ def verify_batch_routed(proof_batch, air_ids, cfg: StwoConfig, airs=AIR_IDS,
 
     proof_batch: a stacked proof of word tensors (``proof.to_torch``),
     leading axis B; air_ids: (B,) integers (numpy or a tensor), each an
-    index into `airs`, a tuple of ``constraints.REGISTRY`` names."""
+    index into `airs`, a tuple of ``constraints.REGISTRY`` names.  Under a
+    CUDA graph capture `air_ids` must already be a tensor on the batch's
+    device: a host array would be a host copy inside the capture."""
     ids = torch.as_tensor(air_ids, dtype=torch.int64, device=proof_batch.commitments.device)
     ok, masks = verifier.verify(proof_batch, cfg, tuple(airs), linkage, ids)
     return (ok, masks) if with_masks else ok
 
 
 def verify_batch_routed_sharded(proof_batch, air_ids, cfg: StwoConfig, mesh: Mesh,
-                                airs=AIR_IDS, linkage: str = "reference"):
+                                airs=AIR_IDS, linkage: str = "reference",
+                                graphed: bool = False):
     """DP over verify_batch_routed: the numpy proof batch and its air_ids
     split over the mesh's ``dp`` axis.  Returns (bitmap (B,) on the mesh's
-    first device, n_accepted)."""
-    bitmaps = mesh.run(lambda b, ids: verify_batch_routed(b, ids, cfg, airs, linkage),
-                       shard_batch(proof_batch, mesh), shard_rows(air_ids, mesh))
+    first device, n_accepted).  `graphed`: each shard replays its graph,
+    as in ``batch.verify_batch_dp``."""
+    bitmaps = run_shards(mesh, graphed, ("routed", cfg, tuple(airs), linkage),
+                         lambda b, ids: verify_batch_routed(b, ids, cfg, airs, linkage),
+                         shard_batch(proof_batch, mesh), shard_rows(air_ids, mesh))
     return unshard(mesh, bitmaps, "dp"), accept_count(mesh, bitmaps, "dp")

@@ -16,6 +16,9 @@ tensors (or proofs), one for each place of the grid in row-major order.
   calling thread issues every shard's work, so over several GPUs the
   shards take turns at the host (``batch.make_mesh`` says what that
   costs, and what to run instead).
+* ``Mesh.capture(fn, *sharded)`` captures ``fn`` as a CUDA graph once a
+  shard, on the shard's stream, and replays them as ``run`` runs ``fn``
+  (``GraphedShards``); the collectives stay outside the graphs.
 * ``ppermute`` moves tensors between the shards of one axis: every
   destination gets a new tensor on its device (``Tensor.to(..., copy=True)``;
   between two GPUs a peer copy), never the source tensor itself.  A
@@ -33,6 +36,7 @@ import math
 
 import torch
 
+from ..tools import build as TB
 from ..utils import distributed as D
 
 
@@ -59,6 +63,7 @@ class Mesh:
         self.process_axis = process_axis
         self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                          for d in self.devices]
+        self.graphs = TB.GraphCache()  # the sharded paths' GraphedShards
 
     def coords(self, i: int) -> dict:
         """The grid coordinates of shard i, by axis name."""
@@ -81,12 +86,15 @@ class Mesh:
             found.setdefault(key, []).append(i)
         return list(found.values())
 
-    def run(self, fn, *sharded):
-        """[fn(*args of shard i) for every shard i], each CUDA shard's work
-        issued on its own stream (see the module docstring)."""
+    def _check_sharded(self, sharded) -> None:
         for a in sharded:
             if len(a) != self.size:
                 raise ValueError(f"a sharded value of {len(a)} shards on a mesh of {self.size}")
+
+    def run(self, fn, *sharded):
+        """[fn(*args of shard i) for every shard i], each CUDA shard's work
+        issued on its own stream (see the module docstring)."""
+        self._check_sharded(sharded)
         for dev, s in zip(self.devices, self._streams):
             if s is not None:
                 s.wait_stream(torch.cuda.current_stream(dev))
@@ -103,6 +111,25 @@ class Mesh:
                 torch.cuda.current_stream(dev).wait_stream(s)
         return out
 
+    def capture(self, fn, *sharded) -> "GraphedShards":
+        """`fn` captured as a CUDA graph once a shard (``tools/build.capture``
+        on the shard's arguments of `sharded`, on the shard's own stream),
+        the counterpart of compiling the body of JAX's ``shard_map``;
+        ``GraphedShards.run`` replays each on that stream.  The shards are
+        captured one after another, each into a pool of its own, since
+        their replays overlap across streams.  One warm-up run a device,
+        before its first shard's capture: it builds the device's tables
+        and constants, which the device's other shards, running `fn` at
+        the same shapes, share (a capture that would have to make one
+        raises).  A CPU shard keeps no graph and runs `fn` at each call."""
+        self._check_sharded(sharded)
+        graphs, warm = [], set()
+        for i, (dev, s) in enumerate(zip(self.devices, self._streams)):
+            graphs.append(TB.capture(fn, tuple(a[i] for a in sharded),
+                                     warmup=int(dev not in warm), stream=s))
+            warm.add(dev)
+        return GraphedShards(self, graphs)
+
     def shard(self, x: torch.Tensor, axis: str) -> list:
         """`x` split along its leading dimension over `axis` in contiguous
         chunks (replicated over the other axes), each on its shard's device."""
@@ -111,6 +138,24 @@ class Mesh:
             raise ValueError(f"{x.shape[0]} rows do not split over {n} shards of {axis!r}")
         chunks = torch.chunk(x, n)
         return [chunks[self.coords(i)[axis]].to(self.devices[i]) for i in range(self.size)]
+
+
+class GraphedShards:
+    """One graphed function a shard of a mesh (``Mesh.capture``).
+
+    ``run(*sharded)`` replays each shard's graph on the shard's stream,
+    with ``Mesh.run``'s fences, after copying the shard's arguments into
+    its static inputs; it returns the copies of each shard's outputs.  A
+    shard called with other shapes than its capture's raises ValueError.
+    ``graphs``: the shards' ``GraphedVerifier``s (their launches, capture
+    and instantiate seconds and pools)."""
+
+    def __init__(self, mesh: Mesh, graphs: list):
+        self.mesh = mesh
+        self.graphs = graphs
+
+    def run(self, *sharded) -> list:
+        return self.mesh.run(lambda g, *args: g(*args), self.graphs, *sharded)
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -12,9 +12,16 @@ same 20,000-110,000 kernels, K1-K5 among them, from one host call.
   every lazily made device table and constant), captures one graph, and
   returns a ``GraphedVerifier``: each call checks the shapes, copies the
   batch into the static inputs, replays, and returns copies of the
-  outputs.  With CUDA tensors a failed capture or replay raises: there is
-  no eager fallback.  With CPU tensors (a caller has to ask for them) the
-  same copy-in, call and copy-out runs without a graph.
+  outputs (``replay`` returns the graph's own outputs, which the next
+  replay overwrites).  A capture may name the stream it is captured on (a
+  mesh shard's) and a memory pool shared with an earlier graph that
+  always runs before it.  With CUDA tensors a failed capture or
+  replay raises: there is no eager fallback.  With CPU tensors (a caller
+  has to ask for them) the same copy-in, call and copy-out runs without a
+  graph.
+* ``GraphCache``: graphs by key and input specs, so a second call with
+  the same key and the same shapes replays without capturing again (the
+  counterpart of jit's cache); it counts the captures it made.
 * ``make_chained``: the chained-verification loop ``bench.py`` times,
   unrolled into one graph.
 * ``build``/``load``: a CUDA graph cannot be written to disk, so the
@@ -50,7 +57,6 @@ from ..ops.cuda import build as kbuild
 from ..ops.cuda import fri_kernel as fk
 from ..ops.cuda import sha256_kernel as ck
 from ..ops.u32 import WORD
-from ..utils.proofcache import cached_stwo_proof
 
 _MAGIC = b"STPUGRF1"
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -134,7 +140,8 @@ def _clone(x):
 
 
 def _spec(x):
-    """What a call must match: each tensor's shape, dtype and device."""
+    """What a call must match of a leaf: a tensor's shape, dtype and
+    device; any other leaf itself."""
     return (tuple(x.shape), x.dtype, x.device) if isinstance(x, torch.Tensor) else x
 
 
@@ -143,34 +150,48 @@ def launch_counts() -> dict:
     return {**ck.launches, **fk.launches}
 
 
+def specs(tree):
+    """``_spec`` of every leaf of `tree`."""
+    return tree_map(_spec, tree)
+
+
 class GraphedVerifier:
     """`fn` captured once on static copies of `args` and replayed.
 
-    Attributes: ``launches``, each kernel's launches recorded in the graph
-    (the wrappers count while the graph is captured, never on a replay);
-    ``capture_s`` (recording the launches) and ``instantiate_s`` (ending
-    the capture, which instantiates the graph); ``pool_bytes``, the device
-    memory the capture took (``max_memory_allocated`` around it).  On the
-    CPU there is no graph, the counts are 0 and the times 0.0."""
+    `stream`: the stream to warm up and capture on (by default a side
+    stream; a replay runs on the caller's current stream, which
+    ``Mesh.run`` sets to the shard's own); `pool`: the memory pool of an
+    earlier graph to share, which must always replay before this one
+    (``pool``).
 
-    def __init__(self, fn, args: tuple, warmup: int = 2):
+    Attributes: ``out``, the outputs of the last call (a graph's own
+    output tensors, which every replay overwrites); ``launches``, each
+    kernel's launches recorded in the graph (the wrappers count while the
+    graph is captured, never on a replay); ``capture_s`` (recording the
+    launches) and ``instantiate_s`` (ending the capture, which
+    instantiates the graph); ``pool_bytes``, the device memory the capture
+    took (``max_memory_allocated`` around it); ``pool``, the graph's
+    memory pool.  On the CPU there is no graph, the counts are 0, the
+    times 0.0 and the pool None."""
+
+    def __init__(self, fn, args: tuple, warmup: int = 2, stream=None, pool=None):
         self.fn = fn
         self.static = tree_map(_clone, tuple(args))
         tensors = [x for x in tree_leaves(self.static) if isinstance(x, torch.Tensor)]
         if not tensors:
             raise ValueError("capture: the arguments hold no tensor")
         self.device = tensors[0].device
-        self._spec = tree_map(_spec, self.static)
-        self.graph = None
+        self._spec = specs(self.static)
+        self.graph = self.pool = self.out = None
         self.launches = {name: 0 for name in launch_counts()}
         self.capture_s = self.instantiate_s = 0.0
         self.pool_bytes = 0
         if self.device.type == "cuda":
-            self._capture(warmup)
+            self._capture(warmup, stream, pool)
 
-    def _capture(self, warmup: int) -> None:
+    def _capture(self, warmup: int, stream, pool) -> None:
         dev = self.device
-        side = torch.cuda.Stream(dev)
+        side = stream or torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(warmup):
@@ -181,7 +202,7 @@ class GraphedVerifier:
         mem0 = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
             t0 = time.perf_counter()
             out = self.fn(*self.static)
             t1 = time.perf_counter()
@@ -189,27 +210,59 @@ class GraphedVerifier:
         self.capture_s = t1 - t0
         self.pool_bytes = torch.cuda.max_memory_allocated(dev) - mem0
         self.launches = {k: n - before[k] for k, n in launch_counts().items()}
-        self._out = out
+        self.out = out
+        self.pool = graph.pool()
         self.graph = graph
 
-    def __call__(self, *args):
-        spec = tree_map(_spec, tuple(args))
+    def replay(self, *args):
+        """Copy `args` into the static inputs and replay (on the CPU: call
+        `fn` on them); returns ``out``, which the next call overwrites."""
+        spec = specs(tuple(args))
         if spec != self._spec:
             raise ValueError(f"graphed verifier captured for {self._spec}, called with {spec}")
         tree_map(lambda s, a: s.copy_(a) if isinstance(s, torch.Tensor) else None,
                  self.static, tuple(args))
         if self.graph is None:
-            out = self.fn(*self.static)
+            self.out = self.fn(*self.static)
         else:
             self.graph.replay()
-            out = self._out
-        return tree_map(_clone, out)
+        return self.out
+
+    def __call__(self, *args):
+        return tree_map(_clone, self.replay(*args))
 
 
-def capture(fn, args: tuple, warmup: int = 2) -> GraphedVerifier:
+def capture(fn, args: tuple, warmup: int = 2, stream=None, pool=None) -> GraphedVerifier:
     """`fn(*args)` as a graphed verifier (see GraphedVerifier); `warmup`
-    eager runs on a side stream come first."""
-    return GraphedVerifier(fn, args, warmup)
+    eager runs on a side stream (or `stream`) come first."""
+    return GraphedVerifier(fn, args, warmup, stream, pool)
+
+
+def _frozen(tree):
+    """`tree` with every list and dict made a tuple, so it can key a dict."""
+    if isinstance(tree, dict):
+        return tuple((k, _frozen(v)) for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        return tuple(_frozen(x) for x in tree)
+    return tree
+
+
+class GraphCache:
+    """Graphed functions by (key, input specs): ``get`` makes an entry
+    once (``make()``, which captures) and returns it on every later call
+    with the same key and the same shapes, dtypes and devices.
+    ``captures`` counts the entries made."""
+
+    def __init__(self):
+        self.entries = {}
+        self.captures = 0
+
+    def get(self, key, args, make):
+        k = (key, _frozen(specs(args)))
+        if k not in self.entries:
+            self.entries[k] = make()
+            self.captures += 1
+        return self.entries[k]
 
 
 def make_chained(cfg, chain: int, tiled_path: bool):
@@ -244,6 +297,10 @@ def inputs(cfg_name: str, batch: int, path: str, chain: int, device):
     """(fn, args) of a manifest: the committed proof of the config in every
     lane, on `device`, through the standard or tiled verifier (chained when
     `chain`)."""
+    # imported here: the proof cache imports the prover, which captures
+    # through this module
+    from ..utils.proofcache import cached_stwo_proof
+
     cfg = CONFIGS[cfg_name]
     b = P.replicate(cached_stwo_proof(cfg), batch)
     arg = tiled.tile_batch(b, cfg, device) if path == "tiled" else P.to_torch(b, device)
