@@ -18,8 +18,9 @@ commit, the sharded prover through ``prove_stwo_sharded()`` (K1, K2) and
 two processes counting one batch; then the tools: the debug CLI's
 verifies (K1-K3), the linkage audit's transcript (K1) and the per-stage
 profiler over both paths (K1-K5); then what the JAX package compiles, as
-CUDA graphs: both provers (``graphed=True``; K1, K2), routed verify and
-DP, TP, GSPMD and routed-sharded with a graph a shard (K1-K3).  Each
+CUDA graphs: the three provers (``graphed=True``; K1, K2; the sharded
+one's shards inside its graph), routed verify and DP, TP, GSPMD and
+routed-sharded with a graph a shard (K1-K3).  Each
 path's launches are counted from 0 just before it runs and read just
 after.  In phases:
 
@@ -149,7 +150,19 @@ after.  In phases:
       8 shards of cuda:0, twice each, phase (j)'s bitmaps, counts and
       masks, each shard's capture seconds, the shard graphs' launches
       against PATHS (8 x 61 / 9 / 2; GSPMD replays TP's graphs), the
-      seconds of a call with its ingestion.
+      seconds of a call with its ingestion, a graphed DP call split into
+      its graph replays' host ms and their span on the device;
+      ``prove_stwo_sharded(graphed=True)`` over 8 shards of cuda:0 (graph
+      A through the first PoW chunk with every shard's launches and
+      exchanges inside it, one read of 3 words, graph B), PRODUCTION s0
+      equal to its fixture and to phase (j)'s eager proof, s1 through the
+      same graphs equal to its fixture, the graphs' launches PATHS' (116
+      K1, 269 K2), the first call, the median of 5 replays, the graphs'
+      capture, instantiate and pool, the busy share and the host launches
+      outside the graphs of a profiled call; TESTING at 20 PoW bits over 8
+      shards, continued, equal to eager.  With several devices,
+      ``phase_multi_gpu`` checks that the graphed sharded proof over them
+      is refused (ValueError).
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -317,10 +330,12 @@ PATHS = {
 }
 # (l): JAX's compiled programs as CUDA graphs launch what their eager runs
 # do: the stwo prover's graphs A and B together (the first PoW chunk in A),
-# stark101's body, routed verify, and one graph a shard of dp, tp and
-# routed_sharded (gspmd replays tp's)
+# stark101's body, routed verify, one graph a shard of dp, tp and
+# routed_sharded (gspmd replays tp's), and the sharded prover's A and B
+# (every shard's launches inside A)
 PATHS.update({f"{path}_graphed": dict(PATHS[path]) for path in (
-    "stwo_prover", "stark101_prove", "routed", "dp", "tp", "routed_sharded")})
+    "stwo_prover", "stark101_prove", "routed", "dp", "tp", "routed_sharded",
+    "stwo_prover_sharded")})
 # (k): each profiled stage's launches over one eager call (tools/profile_verify);
 # PATHS' profile_* rows are their sums.  debug (proof.json, PRODUCTION):
 # one standard verify; linkage_audit: its transcript, stages I-IV's 41 K1.
@@ -1200,12 +1215,19 @@ def _is_pad(name: str) -> bool:
     return "cos_kernel" in name
 
 
+WINDOW = "stpu_graphed_call"  # graph_profile's record_function range
+CLOCK_TOL = 0.01  # the profiler's clock against CUDA events over one call
+
+
 def _device_events(prof) -> list:
     """The device activities of a torch.profiler run, in start order,
-    without the session's padding."""
+    without the session's padding and without the device-side annotation
+    that a ``record_function`` range (WINDOW) leaves: it spans the range's
+    work and is none of it."""
     from torch.autograd import DeviceType
 
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not _is_pad(e.name)]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not _is_pad(e.name)
+           and not getattr(e, "is_user_annotation", False) and e.name != WINDOW]
     return sorted(dev, key=lambda e: e.time_range.start)
 
 
@@ -1374,33 +1396,128 @@ def phase_profile(path, fn, batch, slice_ms):
           f"profile {path} saw {[e.key for e in mine]}, want {list(want)}")
 
 
-def graph_profile(path, fn, batch) -> float:
-    """(h): torch.profiler over one graphed call of `path`, itself timed
-    with CUDA events: the device's busy share of that call (above 100 %
-    fails), and the stpu:: kernels the profiler saw inside the replayed
-    graph (logged, not required: what the profiler shows of a graph is its
-    own).  Returns the busy ms."""
-    import torch
+def host_calls(prof, window: str) -> dict:
+    """The CUDA runtime's launch, copy and set calls that the host made
+    inside the profiled range `window` (``record_function``), by name:
+    (count, host ms)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    events = prof.events()
+    span = next(e for e in events if e.name == window).time_range
+    out = {}
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.name.startswith("cu")
+                and any(k in e.name for k in ("Launch", "Memcpy", "Memset"))
+                and span.start <= e.time_range.start <= span.end):
+            n, ms = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def _union(spans) -> float:
+    """The length of the union of (start, end) spans: their summed length
+    where none overlap, less where they run side by side."""
+    total, reach = 0.0, None
+    for lo, hi in sorted(spans):
+        if reach is None or lo > reach:
+            total += hi - lo
+            reach = hi
+        elif hi > reach:
+            total += hi - reach
+            reach = hi
+    return total
+
+
+def replay_split(fn) -> dict:
+    """One unprofiled fn(), timed with CUDA events, split by its graph
+    replays: `call_ms`; `replays`, their count; `host_ms`, the host time
+    spent inside their ``CUDAGraph.replay`` calls; `device_ms`, the union
+    of the graphs' spans on the device (CUDA events recorded around each
+    replay on its stream, so a shard graph's span is its own stream's)
+    and `device_sum_ms`, those spans summed."""
+    import torch
+
+    spent, spans = [], []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def timed_replay(graph):
+        before, after = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before.record()
+        t0 = time.perf_counter()
+        replay(graph)
+        spent.append(time.perf_counter() - t0)
+        after.record()
+        spans.append((before, after))
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.CUDAGraph.replay = timed_replay
+    try:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    ms = [(start.elapsed_time(a), start.elapsed_time(b)) for a, b in spans]
+    return {"call_ms": start.elapsed_time(end), "replays": len(spent),
+            "host_ms": 1e3 * sum(spent), "device_ms": _union(ms),
+            "device_sum_ms": sum(b - a for a, b in ms)}
+
+
+def graph_split(path, fn) -> dict:
+    """(l): ``replay_split`` of fn(), one graphed call of `path`, logged:
+    its graph replays' host ms against their span on the device."""
+    split = replay_split(fn)
+    log(f"graph split {path}: an unprofiled call {split['call_ms']:.3f} ms (CUDA events); "
+        f"its {split['replays']} graph replays held the host {split['host_ms']:.3f} ms and "
+        f"spanned {split['device_ms']:.3f} ms of the device (their spans summed "
+        f"{split['device_sum_ms']:.3f} ms) [{CARD}]")
+    return split
+
+
+def graph_profile(path, fn, batch) -> float:
+    """(h): one graphed call of `path` unprofiled and split by its graph
+    replays (``graph_split``: their host ms against their device span);
+    then torch.profiler over one more, itself timed with CUDA events: the
+    device's busy time, the union of its kernels, copies and sets (the
+    profiled window's own annotation is no device work), which fails above
+    the CUDA-event call by more than CLOCK_TOL (the two clocks differ), as
+    a share of that call, their summed time beside it (larger where graph
+    branches run side by side); the stpu:: kernels the profiler saw inside
+    the replayed graph (logged, not required: what the profiler shows of a
+    graph is its own), and the host's runtime calls in the call: the
+    graph launches with their host ms (CUPTI slows them and the call), and
+    every launch and copy made outside them.  Returns the busy ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    graph_split(path, lambda: fn(batch))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _pad_session()
         start.record()
-        fn(batch)
+        with record_function(WINDOW):
+            fn(batch)
         end.record()
         torch.cuda.synchronize()
     call_ms = start.elapsed_time(end)
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not _is_pad(e.key)]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    seen = {w: sum(e.count for e in dev if f"stpu::{w}(" in e.key)
-            for _, _, _, w in KERNELS.values()}
-    check(busy_ms <= call_ms, f"graph profile {path}: device busy {busy_ms:.3f} ms in a "
-          f"{call_ms:.3f} ms call")
-    log(f"graph profile {path}: device busy {busy_ms:.3f} ms in "
-        f"{sum(e.count for e in dev)} device activities, "
+    calls = host_calls(prof, WINDOW)
+    graph_n, graph_ms = calls.pop("cudaGraphLaunch", (0, 0.0))
+    outside = sum(n for k, (n, _) in calls.items() if "Launch" in k)
+    log(f"graph profile {path}: in the profiled call cudaGraphLaunch {graph_n} "
+        f"({graph_ms:.3f} ms host), outside the graphs {outside} kernel launches and "
+        f"{sum(n for k, (n, _) in calls.items() if 'Launch' not in k)} copies or sets "
+        f"{ {k: n for k, (n, _) in sorted(calls.items())} } [{CARD}]")
+    dev = _device_events(prof)
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    busy_ms = _union(spans) / 1e3
+    summed_ms = sum(b - a for a, b in spans) / 1e3
+    seen = {w: sum(f"stpu::{w}(" in e.name for e in dev) for _, _, _, w in KERNELS.values()}
+    check(0 < busy_ms <= (1 + CLOCK_TOL) * call_ms,
+          f"graph profile {path}: device busy {busy_ms:.3f} ms in a {call_ms:.3f} ms call")
+    log(f"graph profile {path}: device busy {busy_ms:.3f} ms (the union of {len(dev)} "
+        f"device activities; their summed time {summed_ms:.3f} ms), "
         f"{100 * busy_ms / call_ms:.1f} % of the profiled graphed call's {call_ms:.3f} ms "
         f"(CUDA events); stpu:: kernels seen inside the graph {seen} [{CARD}]")
     return busy_ms
@@ -1872,7 +1989,8 @@ def phase_parallel(proofs, routed, err=None):
     run over 4 shards.  Each path's launches counted from 0 and held to PATHS;
     each time by the host clock with the device synchronized.  Returns (the
     launch counts by path, the median ms of a sharded proof, the eager
-    (bitmap, n_ok[, masks]) of dp, tp, gspmd and routed_sharded)."""
+    (bitmap, n_ok[, masks]) of dp, tp, gspmd and routed_sharded and the
+    eager sharded proof of s0)."""
     import statistics
 
     import numpy as np
@@ -2036,6 +2154,7 @@ def phase_parallel(proofs, routed, err=None):
               f"sharded prover: {info}")
         seconds.append(secs)
     counts["stwo_prover_sharded"] = made
+    eager["stwo_prover_sharded"] = proof
     log(f"stwo_prover_sharded: prove_stwo_sharded(PRODUCTION, s0) over {SHARDS} shards, "
         f"every FRI layer sharded, equal to its fixture in every field "
         f"{len(seconds)} times; "
@@ -2084,7 +2203,93 @@ def graph_launches(graphs) -> dict:
     return {k: sum(g.launches[k] for g in graphs) for k in graphs[0].launches}
 
 
-def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded) -> dict:
+def compiled_sharded_prover(eager_s0, sharded_ms: float, eager20) -> dict:
+    """(l): the sharded prover as JAX compiles it, ``prove_stwo_sharded(
+    graphed=True)`` over 8 shards of cuda:0: graph A (the shard streams
+    forked from and joined to its capture, so every shard's launches and
+    exchanges lie inside it), one host read, graph B.  PRODUCTION s0 equal
+    to its fixture and to `eager_s0` (phase (j)'s eager proof, which took
+    `sharded_ms`) on the first call and five replays, s1 through the same
+    graphs equal to its fixture; one capture; A's and B's launches
+    together PATHS', the counts over the 7 proofs their warm-up's and
+    capture's alone; a profiled graphed call.  TESTING at 20 PoW bits,
+    continued, equal to the eager sharded proof and to `eager20`, the
+    unsharded one.  Returns the launches in the graphs."""
+    import dataclasses
+    import statistics
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import prover, prover_sharded
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
+
+    mesh = E.sharded_prover_mesh("cuda", SHARDS)
+    want = {seed: P.load_npz(str(fixture_path(PRODUCTION, seed))) for seed in (0, 1)}
+    before = mesh.graphs.captures
+    reset_counts()
+    (proof, info), first_s = timed(
+        lambda: E.prove_stwo_sharded(PRODUCTION, seed=0, graphed=True))
+    captures = mesh.graphs.captures - before
+    check(captures == 1 and info == {"n_sharded_layers": 1 + PRODUCTION.n_inner_layers},
+          f"graphed sharded prover: {captures} captures, {info}")
+    seconds = []
+    for i in range(6):
+        if i:
+            (proof, _), secs = timed(
+                lambda: E.prove_stwo_sharded(PRODUCTION, seed=0, graphed=True))
+            seconds.append(secs)
+        for what, ref in (("its fixture", want[0]),
+                          ("phase (j)'s eager proof", eager_s0)):
+            diff = first_difference(proof, ref)
+            check(diff is None, f"graphed sharded proof (PRODUCTION, s0), call {i + 1}: "
+                  f"{diff and diff[0]} differs from {what} first at index {diff and diff[1]}")
+    (proof, _), s1_s = timed(lambda: E.prove_stwo_sharded(PRODUCTION, seed=1, graphed=True))
+    diff = first_difference(proof, want[1])
+    check(diff is None and mesh.graphs.captures - before == 1,
+          f"graphed sharded proof (PRODUCTION, s1) through s0's graphs: {diff and diff[0]} "
+          f"differs from its fixture first at index {diff and diff[1]}; "
+          f"{mesh.graphs.captures - before} captures")
+    made = launch_counts()
+    gps = prover_sharded.graphed_prover(
+        PRODUCTION, mesh, "sp", from_numpy(prover.seeded_trace(PRODUCTION, 0), "cuda"))
+    graphed = graph_launches([gps.a, gps.b])
+    check_counts("stwo_prover_sharded_graphed", graphed)
+    check(made == {k: 2 * n for k, n in graphed.items()}
+          and gps.continued == 0,
+          f"graphed sharded prover: {made} launched over 7 proofs, want one warm-up and one "
+          f"capture of A and B {graphed} and no eager launch; "
+          f"{gps.continued} continued")
+    log(f"stwo prover sharded graphed: prove_stwo_sharded(PRODUCTION, s0, graphed=True) over "
+        f"{SHARDS} shards of cuda:0, equal to its fixture and to phase (j)'s eager proof in "
+        f"every field 6 times, then s1 through the same graphs equal to its fixture "
+        f"({s1_s:.4f} s); first call {first_s:.3f} s ({captures} capture: one warm-up, "
+        f"capture of A, one replay, capture of B); median {statistics.median(seconds):.4f} s "
+        f"of the next {len(seconds)} ({min(seconds):.4f}-{max(seconds):.4f} s; host clock, "
+        f"synchronized), eager {sharded_ms / 1e3:.4f} s (phase j); A: {graph_stats([gps.a])}, "
+        f"launches {gps.a.launches}; B: {graph_stats([gps.b])}, launches {gps.b.launches}; "
+        f"launches over the 7 proofs {made} [{CARD}]")
+    graph_profile("stwo_prover_sharded_graphed",
+                  lambda _: E.prove_stwo_sharded(PRODUCTION, seed=0, graphed=True), None)
+
+    cfg20 = dataclasses.replace(TESTING, pow_bits=20)
+    eager20s, _ = E.prove_stwo_sharded(cfg20)
+    graphed20s, _ = E.prove_stwo_sharded(cfg20, graphed=True)
+    gps20 = prover_sharded.graphed_prover(
+        cfg20, mesh, "sp", from_numpy(prover.seeded_trace(cfg20, None), "cuda"))
+    check(first_difference(graphed20s, eager20s) is None
+          and first_difference(graphed20s, eager20) is None and gps20.continued == 1,
+          f"graphed sharded TESTING proof at 20 PoW bits: continued {gps20.continued}, first "
+          f"difference from eager {first_difference(graphed20s, eager20s)}")
+    log(f"stwo prover sharded graphed, TESTING at 20 PoW bits over {SHARDS} shards: graph A's "
+        f"chunk missed, the eager grind carried on to nonce "
+        f"{int(eager20.pow_nonce[0]) << 32 | int(eager20.pow_nonce[1])}; the proof equals the "
+        "eager sharded and unsharded ones in every field")
+    return graphed
+
+
+def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded, sharded_ms) -> dict:
     """(l): what the JAX package compiles as one program, captured as CUDA
     graphs and replayed, each result held to its eager run's.
 
@@ -2097,7 +2302,16 @@ def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded) -> dict:
     first call (with the capture) and the median of the 16 replays by the
     host clock, the device's busy share of one profiled graphed proof.
     The continuation: TESTING at 20 PoW bits, where the first chunk
-    misses, equal to the eager proof.  stark101 (``prove_stark101(graphed=
+    misses, equal to the eager proof.  The sharded prover
+    (``prove_stwo_sharded(graphed=True)`` over 8 shards of cuda:0, every
+    shard's launches and exchanges inside graph A): PRODUCTION s0 equal to
+    its fixture and to phase (j)'s eager proof six times, then s1 through
+    the same graphs equal to its fixture; one capture, A's and B's
+    launches together PATHS' and the counts over the 7 proofs the warm-up's
+    and the capture's alone; the first call and the median of 5 replays,
+    capture, instantiate and pool of A and B, a profiled graphed call's
+    busy share and its host launches outside the graphs; TESTING at 20
+    PoW bits, continued, equal to eager.  stark101 (``prove_stark101(graphed=
     True)``): the golden proof and the eager one, its graph's launches
     equal to PATHS.  Routed verify captured (``tools/build.capture``):
     phase (i)'s bitmap and masks.  DP, TP, GSPMD and routed-sharded with
@@ -2105,7 +2319,9 @@ def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded) -> dict:
     and masks; each shard's capture, the launches of the shard graphs
     against PATHS, the seconds of the first call (captures included) and
     of a second one (ingestion included, as (j) counts it), which captures
-    nothing.  Returns each graphed path's launches."""
+    nothing; a graphed DP call's graph replays, their host ms against their
+    span on the device (``graph_split``).  `sharded_ms`: phase (j)'s eager
+    sharded proof.  Returns each graphed path's launches."""
     import dataclasses
     import gc
     import statistics
@@ -2179,6 +2395,9 @@ def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded) -> dict:
     log(f"stwo prover graphed, TESTING at 20 PoW bits: graph A's chunk of "
         f"{prover.n_candidates(cfg20)} missed, the eager grind carried on to nonce {nonce}; the "
         "proof equals the eager one in every field")
+
+    counts["stwo_prover_sharded_graphed"] = compiled_sharded_prover(
+        sharded["stwo_prover_sharded"], sharded_ms, eager20)
 
     golden = P101.load_json(str(E.STARK101_GOLDEN))
     (eager101, info_e), eager101_s = timed(E.prove_stark101)
@@ -2260,6 +2479,10 @@ def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded) -> dict:
             f"{', '.join(f'{g.capture_s + g.instantiate_s:.3f}' for g in shards)} s, pools "
             f"{sum(g.pool_bytes for g in shards) / 2**20:.1f} MiB; launches in the shard "
             f"graphs {graph_launches(shards)} [{CARD}]")
+        if name == "dp":
+            # by CUDA events alone: under torch.profiler its 900,000 graph
+            # nodes run five times slower and take minutes to parse
+            graph_split("dp_graphed", lambda: call(mesh))
         if name != "tp":  # gspmd replays tp's graphs; free the others' pools
             mesh.graphs.entries.clear()
             gc.collect()
@@ -2277,7 +2500,8 @@ def phase_multi_gpu(proofs, per_device: int = 1024):
     backend is nccl), each timing its second call.  Then, across the devices, TP
     at dp1 x tp4 (tp2 on fewer than 4 devices), the stwo fold and commit
     at lde 18 and the PRODUCTION sharded proof over 8 shards spread over
-    them, each against its single-device oracle.  On one device, prints
+    them, each against its single-device oracle, and the graphed sharded
+    proof over that mesh refused with ValueError.  On one device, prints
     that none of it was measured."""
     import torch
 
@@ -2357,6 +2581,16 @@ def phase_multi_gpu(proofs, per_device: int = 1024):
         PRODUCTION, sp, trace=seeded_trace(PRODUCTION, 0)))
     check(first_difference(proof, P.load_npz(str(fixture_path(PRODUCTION, 0)))) is None,
           "the sharded proof across devices differs from its fixture")
+    try:  # graph A is one capture on one device: a mesh over several is refused
+        prover_sharded.prove_sharded(PRODUCTION, sp, trace=seeded_trace(PRODUCTION, 0),
+                                     graphed=True)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None and sp.graphs.captures == 0,
+          f"prove_sharded(graphed=True) over {n_gpu} devices ran instead of raising ValueError")
+    log(f"across {n_gpu} devices: prove_sharded(graphed=True) refused with ValueError: "
+        f"{refused}")
     log(f"across {n_gpu} devices: tp over {tp} shards {tp_s:.3f} s, equal to verify; lde-18 "
         f"fold (14 stages) {fold_s:.3f} s and commit {commit_s:.3f} s over {SHARDS} shards, "
         f"equal to their oracles; PRODUCTION sharded proof {prove_s:.3f} s, equal to its "
@@ -2591,7 +2825,8 @@ def main() -> int:
     stamp("(j)")
     counts.update(phase_tools(proofs))  # (k)
     stamp("(k)")
-    counts.update(phase_compiled(proofs, stwo_proofs, prove_ms, routed, sharded))  # (l)
+    counts.update(phase_compiled(proofs, stwo_proofs, prove_ms, routed, sharded,  # (l)
+                                 sharded_ms))
     stamp("(l)")
 
     largest = {}  # per kernel, its last timed shape: the path's largest call

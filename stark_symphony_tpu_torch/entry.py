@@ -15,15 +15,16 @@ device every SHA-256, Merkle and fused-stage call of either path runs in
 the kernels of ``ops/cuda``.  ``entry_stark101()`` is the same for the
 batched stark101 verifier, and ``prove_stark101()`` runs the stark101
 prover; ``prove_stwo()`` runs the stwo prover on the trace of a proof
-cache entry (both provers take ``graphed=True``, as JAX compiles them),
-and ``prove_stwo_sharded()`` the same with its FRI phase sharded over a
-mesh.  ``dryrun_multichip()`` drives the sharded verifiers
+cache entry, and ``prove_stwo_sharded()`` the same with its FRI phase
+sharded over a mesh (all three provers take ``graphed=True``, as JAX
+compiles them).  ``dryrun_multichip()`` drives the sharded verifiers
 (DP, the GSPMD counterpart, TP) at TESTING size, the counterpart of
 ``__graft_entry__.dryrun_multichip``.
 """
 
 from __future__ import annotations
 
+import functools
 import pathlib
 
 import numpy as np
@@ -129,15 +130,25 @@ def prove_stwo(cfg=PRODUCTION, seed=None, air: str = "wide_fibonacci", device: s
     return prover.prove(cfg, prover.seeded_trace(cfg, seed, air), air, device, graphed)
 
 
+@functools.lru_cache(maxsize=None)
+def sharded_prover_mesh(device: str = "cuda", n_shards: int = 8) -> Mesh:
+    """The ("sp",) mesh of n_shards shards on `device` that
+    prove_stwo_sharded proves over, made once per (device, n_shards), so
+    its graphs (``mesh.graphs``) serve every later call."""
+    return Mesh([device] * n_shards, ("sp",))
+
+
 def prove_stwo_sharded(cfg=PRODUCTION, seed=None, n_shards: int = 8, device: str = "cuda",
-                       air: str = "wide_fibonacci"):
+                       air: str = "wide_fibonacci", graphed: bool = False):
     """The stwo prover with its FRI phase sharded over n_shards shards, all
     on `device` (``models/stwo/prover_sharded.py``), on the trace of the
     proof cache's (cfg, seed, air) entry: (StwoProof of numpy words,
-    {"n_sharded_layers": k})."""
-    mesh = Mesh([device] * n_shards, ("sp",))
-    return prover_sharded.prove_sharded(cfg, mesh, trace=prover.seeded_trace(cfg, seed, air),
-                                        air=air)
+    {"n_sharded_layers": k}); `graphed`: two CUDA graphs around the PoW
+    grind, the exchanges inside the first (``prover_sharded.graphed_prover``),
+    captured once per (cfg, air) on the mesh of (device, n_shards)."""
+    return prover_sharded.prove_sharded(cfg, sharded_prover_mesh(device, n_shards),
+                                        trace=prover.seeded_trace(cfg, seed, air), air=air,
+                                        graphed=graphed)
 
 
 def _check(cond, what: str) -> None:

@@ -458,17 +458,21 @@ class GraphedProver:
     compiles ``_prove_jit`` with its grind inside (a graph cannot hold
     the grind's data-dependent loop).
 
-    Graph A (``_segment_a``) runs on the trace through the first PoW
-    chunk; one host read takes its 3 words (found, hi, lo); where the
-    chunk found nothing, ``pow_grind`` carries on eagerly from chunk 2;
-    graph B (``_segment_b``) reads A's outputs in place, shares A's memory
-    pool and takes the nonce as its static input.  B is captured at the
-    first call, once A has run.  ``continued`` counts the calls whose
-    first chunk missed.  On the CPU the same segments run without graphs."""
+    Graph A (`segment_a(trace) -> SegmentA`) runs on the trace through
+    the first PoW chunk; one host read takes its 3 words (found, hi, lo);
+    where the chunk found nothing, ``pow_grind`` carries on eagerly from
+    chunk 2; graph B (`segment_b(a, nonce) -> StwoProof`) reads A's
+    outputs in place, shares A's memory pool and takes the nonce as its
+    static input.  B is captured at the first call, once A has run.
+    ``continued`` counts the calls whose first chunk missed.  On the CPU
+    the same segments run without graphs.  ``graphed_prover`` passes this
+    module's ``_segment_a`` and ``_segment_b``, ``prover_sharded`` its
+    own."""
 
-    def __init__(self, cfg: StwoConfig, air: str, trace):
+    def __init__(self, cfg: StwoConfig, trace, segment_a, segment_b):
         self.cfg = cfg
-        self.a = TB.capture(lambda t: _segment_a(cfg, t, air), (trace,), warmup=1)
+        self.segment_b = segment_b
+        self.a = TB.capture(segment_a, (trace,), warmup=1)
         self.b = None
         self.continued = 0
 
@@ -482,7 +486,7 @@ class GraphedProver:
             nonce = pow_grind(self.cfg, a.state, start=n_candidates(self.cfg))
         if self.b is None:
             # self.a.out: A's graph outputs on the card, its last result on the CPU
-            self.b = TB.capture(lambda n: _segment_b(self.cfg, self.a.out, n), (nonce,),
+            self.b = TB.capture(lambda n: self.segment_b(self.a.out, n), (nonce,),
                                 warmup=1, pool=self.a.pool)
         return self.b.replay(nonce)
 
@@ -493,7 +497,8 @@ GRAPHS = TB.GraphCache()  # GraphedProver by (cfg, air) and the trace's spec
 def graphed_prover(cfg: StwoConfig, trace, air: str = "wide_fibonacci") -> GraphedProver:
     """The GraphedProver of (cfg, air) for `trace`'s shape and device,
     captured at its first use."""
-    return GRAPHS.get((cfg, air), (trace,), lambda: GraphedProver(cfg, air, trace))
+    return GRAPHS.get((cfg, air), (trace,), lambda: GraphedProver(
+        cfg, trace, lambda t: _segment_a(cfg, t, air), lambda a, n: _segment_b(cfg, a, n)))
 
 
 def _to_numpy_proof(proof: StwoProof) -> StwoProof:

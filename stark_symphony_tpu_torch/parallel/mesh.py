@@ -15,7 +15,10 @@ tensors (or proofs), one for each place of the grid in row-major order.
   the devices' current streams between runs, see finished shards.  The
   calling thread issues every shard's work, so over several GPUs the
   shards take turns at the host (``batch.make_mesh`` says what that
-  costs, and what to run instead).
+  costs, and what to run instead).  Inside a CUDA graph capture on the
+  shards' one device, those waits are the capture's fork and join: the
+  shards' work and the collectives between runs all lie inside the one
+  graph (``models/stwo/prover_sharded.graphed_prover``).
 * ``Mesh.capture(fn, *sharded)`` captures ``fn`` as a CUDA graph once a
   shard, on the shard's stream, and replays them as ``run`` runs ``fn``
   (``GraphedShards``); the collectives stay outside the graphs.
