@@ -55,7 +55,7 @@ after.  In phases:
   (f) at the shapes each path gives each kernel: kernel and plain version
       compared bit for bit again (K4/K5 on inputs where both ok values
       occur, as in (c)), then timed with CUDA events, beside each
-      path's proofs/s (median of 5 batches, each timed alone); for every
+      path's proofs/s (median of 3 batches, each timed alone); for every
       kernel, torch.profiler over one wrapper call must show one device
       activity, the stpu:: kernel itself, and K3 is timed in blocks of 32
       and of 128 threads;
@@ -69,7 +69,7 @@ after.  In phases:
       reject exactly those lanes, every mask equal to the port's CPU run;
       the launches of one prove and of one verifier batch must equal
       PATHS; K1-K3 at the stark101 shapes are compared and timed as in
-      (f); the verifications/s (median of 5 batches of 4,096, each timed
+      (f); the verifications/s (median of 3 batches of 4,096, each timed
       alone), the device's busy share of a profiled batch and the seconds
       of one prove are printed;
   (h) graphs: K1 at n = 88 in 128-lane blocks (its launcher sets the
@@ -86,7 +86,7 @@ after.  In phases:
       stream (``parallel/pipeline.StreamVerifier``, 8 host batches) and
       ``tools.build``'s build and ``--load --check``, each against eager;
   (i) stwo prover and routed verify: ``prove_stwo()`` at PRODUCTION,
-      unseeded and seeds 0-15, each proof equal to its committed fixture
+      unseeded and seeds 0-3, each proof equal to its committed fixture
       in every field (a mismatch names the field and the first differing
       index), K1 and K2 counted over each proof, equal to PATHS, the
       seconds of the first proof and the median of the others; a
@@ -104,10 +104,14 @@ after.  In phases:
       GSPMD counterpart at dp2 x tp4 on 512 of those lanes, likewise; K3
       at a TP shard's FRI walk (256 proofs x 9 layers x 4 queries, depth
       period 36) against plain and hashlib, and timed beside its plain
-      version and bound; ``verify_batch_routed_sharded`` on phase (i)'s
-      routed batch, equal to ``verify_batch_routed``; the stwo fold and
-      commit (every level) at lde 13 and 18 and the stark101 fold at 8,192
-      over 10 stages, against their single-device oracles;
+      version and bound, its device time profiled;
+      ``verify_batch_routed_sharded`` on phase (i)'s routed batch, equal
+      to ``verify_batch_routed``; the stwo fold and commit (every level)
+      at lde 13 and 18 and the stark101 fold at 8,192 over 10 stages,
+      against their single-device oracles, then each with
+      ``graphed=True`` (a graph a shard body, captured once; the
+      exchanges eager), equal to the eager call three times, the lde-18
+      commit's graphs launching 8 K1 and 63 K2;
       ``prove_stwo_sharded()`` at PRODUCTION s0, equal to its fixture (the
       bound of one proof's K1 and K2 launches printed), and the lde-18 BIG
       proof accepted by ``verify`` and rejected with one FRI
@@ -118,7 +122,8 @@ after.  In phases:
       (``phase_multi_gpu``), the DP weak scaling efficiency over them, in
       one process and in one process a device (nccl, each process's
       share of the cards it sees), and TP, the SP
-      blocks and the sharded prover across them, else "not measured";
+      blocks and the sharded prover across them, eager and graphed (the
+      prover in its per-shard layout), else "not measured";
   (k) the tools (``phase_tools``): ``tools/debug`` on proof_test.json,
       proof.json and the golden stark101 proof, and with ``--ops
       --ops-filter m31_mul,sha256_pair --limit 50``, each output and exit
@@ -135,12 +140,12 @@ after.  In phases:
       stopped after 4 and resumed, counting what the run never stopped
       counts;
   (l) compiled (``phase_compiled``): ``prove_stwo(graphed=True)`` at
-      PRODUCTION, unseeded and seeds 0-15 (graph A through the first PoW
+      PRODUCTION, unseeded and seeds 0-3 (graph A through the first PoW
       chunk, one read of 3 words, graph B), each proof equal to its
       fixture and to phase (i)'s eager proof word for word, A's and B's
-      launches together PATHS' (53 K1, 107 K2), the counts over all 17
+      launches together PATHS' (53 K1, 107 K2), the counts over all 5
       proofs those of one warm-up and one capture; capture, instantiate
-      and pool of A and B, the first call and the median of 16 replays,
+      and pool of A and B, the first call and the median of 4 replays,
       the device's busy share of a profiled graphed proof; TESTING at 20
       PoW bits, where A's chunk misses and the eager grind carries on,
       equal to its eager proof; ``prove_stark101(graphed=True)`` equal to
@@ -160,9 +165,19 @@ after.  In phases:
       K1, 269 K2), the first call, the median of 5 replays, the graphs'
       capture, instantiate and pool, the busy share and the host launches
       outside the graphs of a profiled call; TESTING at 20 PoW bits over 8
-      shards, continued, equal to eager.  With several devices,
-      ``phase_multi_gpu`` checks that the graphed sharded proof over them
-      is refused (ValueError).
+      shards, continued, equal to eager.  The per-shard layout, which a
+      mesh over several devices takes, over 8 shards of cuda:0 through
+      ``prover_sharded.per_shard_prover`` (graph A as one graphed sharded
+      call: ``_pre_fri``, each transcript step and the small layers with
+      the first PoW chunk in graphs on the first shard, every leaf hash,
+      level and fold in a graph a shard; graph B): PRODUCTION s0 equal
+      to its fixture four times and s1 through the same graphs, one
+      capture, its graphs' launches PATHS' (116 K1, 269 K2) and none
+      through the wrappers on the replays, its time beside graph A's, the
+      graphs' capture, instantiate and pools, a call split by its graph
+      replays.  With several devices, ``phase_multi_gpu`` runs the same
+      over 8 shards spread over them through ``prove_sharded(graphed=
+      True)``.
 
 Any failure raises and exits non-zero.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
@@ -188,7 +203,7 @@ CARD = "not read"  # the card's name and power limit, as nvidia-smi gives them
 PACKAGE = "stark_symphony_tpu_torch"
 N_PROOFS = 4096
 LANES = 4097  # not a multiple of any block size: the ragged edge runs
-PROVER_SEEDS = [None] + list(range(16))  # the PRODUCTION proofs (i) and (l) make
+PROVER_SEEDS = [None] + list(range(4))  # the PRODUCTION proofs (i) and (l) make
 BIG_LANES = 33_793  # K1-K3 take 128-lane blocks from 33,792 lanes: 264 and 1
 
 # The 15 tamper classes of tests/test_pow_production.py (PROD_TAMPERS):
@@ -336,6 +351,14 @@ PATHS = {
 PATHS.update({f"{path}_graphed": dict(PATHS[path]) for path in (
     "stwo_prover", "stark101_prove", "routed", "dp", "tp", "routed_sharded",
     "stwo_prover_sharded")})
+# (j), (l): the graphed sharded calls' per-shard graphs launch what the
+# eager calls do: the lde-18 commit over 8 shards one K1 a shard for the
+# leaves, 15 levels of 4 K2 and 3 top levels on the first device; the
+# sharded prover's per-shard layout the eager sharded proof's launches,
+# over its program's graphs and graph B
+PATHS["sp_commit_graphed"] = {"sha256_words": 8, "sha256_pair": 15 * 4 + 3, "merkle_walk": 0,
+                              "leafwalk": 0, "fri_all_layers": 0}
+PATHS["stwo_prover_per_shard_graphed"] = dict(PATHS["stwo_prover_sharded"])
 # (k): each profiled stage's launches over one eager call (tools/profile_verify);
 # PATHS' profile_* rows are their sums.  debug (proof.json, PRODUCTION):
 # one standard verify; linkage_audit: its transcript, stages I-IV's 41 K1.
@@ -351,7 +374,7 @@ PROFILE_LAUNCHES = {
         "fri_fused": {"fri_all_layers": 1}, "points_only": {}, "stage_vi": {},
         "full": {"sha256_words": 41, "leafwalk": 2, "fri_all_layers": 1}},
 }
-PROFILE_ITERS = 2
+PROFILE_ITERS = 1
 
 # The bound of a kernel call: the larger of bytes / memory rate and integer
 # instructions / integer issue rate, on an H100 SXM.  The memory rate and
@@ -536,6 +559,22 @@ def cuda_ms(fn, iters: int, warm: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_call(fn):
+    """(fn(), its milliseconds by CUDA events): one run, timed where it
+    runs, with no warm-up (a plain version's comparison run, timed as it
+    is made)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def reset_counts() -> None:
@@ -885,7 +924,7 @@ def phase_slice(proofs):
     log(f"standard path: all {N_PROOFS} proofs accepted")
     check_counts("standard", counts)
 
-    slice_ms, runs = batch_ms(fn, batch)  # the first run above was the warm-up
+    slice_ms, runs = batch_ms(fn, batch, runs=3)  # the first run above was the warm-up
     log(f"standard slice: {slice_ms:.3f} ms per {N_PROOFS}-proof batch "
         f"({N_PROOFS / (slice_ms / 1e3):.1f} proofs/s; CUDA events, median of "
         f"{len(runs)} runs: {', '.join(f'{r:.1f}' for r in runs)} ms)")
@@ -959,7 +998,7 @@ def phase_tiled(proofs, tamper_cpu):
     log(f"tiled path: all {N_PROOFS} proofs accepted")
     check_counts("tiled", counts)
 
-    slice_ms, runs = batch_ms(fn, tb)
+    slice_ms, runs = batch_ms(fn, tb, runs=3)
     log(f"tiled slice: {slice_ms:.3f} ms per {N_PROOFS}-proof batch "
         f"({N_PROOFS / (slice_ms / 1e3):.1f} proofs/s; CUDA events, median of "
         f"{len(runs)} runs: {', '.join(f'{r:.1f}' for r in runs)} ms)")
@@ -1036,7 +1075,7 @@ def phase_stark101():
     ok_c, masks_c = V101.verify(P101.to_torch(tb, "cpu"))
     check_tamper("stark101", ok_g, masks_g, ok_c, masks_c)
 
-    batch_med, runs = batch_ms(fn, batch)  # the first run above was the warm-up
+    batch_med, runs = batch_ms(fn, batch, runs=3)  # the first run above was the warm-up
     log(f"stark101 slice: {batch_med:.3f} ms per {N_PROOFS}-lane batch "
         f"({N_PROOFS / (batch_med / 1e3):.1f} verifications/s; CUDA events, median of "
         f"{len(runs)} runs: {', '.join(f'{r:.1f}' for r in runs)} ms)")
@@ -1135,8 +1174,9 @@ def phase_timings(rng, err):
 
 def time_cases(cases, err):
     """Each case (kernel name, what, arguments) through its wrapper and its
-    plain version: bit for bit (largest difference into `err`), then both
-    timed with CUDA events, then one wrapper call of each profiled
+    plain version: bit for bit (largest difference into `err`), the plain
+    version timed with CUDA events on that comparison run and the wrapper
+    over 20 more, then one wrapper call of each profiled
     (``one_kernel_each``).  Returns (rows, calls): rows (name, what, kernel
     ms, plain ms, bound ms, bound by, compressions, device ms a call) and
     one (name, call) a case."""
@@ -1164,7 +1204,7 @@ def time_cases(cases, err):
         kargs = i32(args) if name in ("leafwalk", "fri_all_layers") else args
         outs = kern[name](*kargs)
         outs = outs if isinstance(outs, tuple) else (outs,)
-        want = plain[name](*args)
+        want, p_ms = cuda_call(lambda: plain[name](*args))
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(outs, want):
             g = from_i32(g) if g.dtype == torch.int32 else g
@@ -1177,8 +1217,6 @@ def time_cases(cases, err):
                   "want both values")
         b_ms, b_by, compr = bound(name, kargs, outs)
         k_ms = cuda_ms(lambda: kern[name](*kargs), 20)
-        # the plain version ran just above (`want`): one timed run more
-        p_ms = cuda_ms(lambda: plain[name](*args), 1, warm=True)
         calls.append((name, lambda f=kern[name], a=kargs: f(*a)))
         rows.append([name, what, k_ms, p_ms, b_ms, b_by, compr])
         log(f"time {name} [{what}]: bit-equal; kernel {k_ms:.4f} ms, plain "
@@ -1531,8 +1569,8 @@ def phase_graphs(proofs) -> dict:
     then the valid batch with the tamper classes in lanes 1-15 (stark101
     1-10), gives the eager bitmap and every eager mask bit for bit, and so
     does the entry's graph its bitmap: exactly those lanes are rejected,
-    so replay reads new inputs; eager and graphed batch ms (median of 3
-    and of 5, each timed alone), the device's busy share of a profiled graphed call,
+    so replay reads new inputs; eager and graphed batch ms (one run and
+    the median of 3, each timed alone), the device's busy share of a profiled graphed call,
     capture and instantiate seconds and the graph pool's memory are
     printed with the card's name and power limit.  Then, on the tiled
     path: make_chained at chain 2 gives the eager bitmaps; StreamVerifier
@@ -1592,7 +1630,7 @@ def phase_graphs(proofs) -> dict:
         check(all(n >= fn.launches[k] for k, n in launch_counts().items()),
               f"{path} graph: the counts do not hold the capture's launches")
         reset_counts()
-        eager_ms, eager_runs = batch_ms(fn.fn, batch, runs=3)
+        eager_ms, eager_runs = batch_ms(fn.fn, batch, runs=1)
         eager = {k: n // len(eager_runs) for k, n in launch_counts().items()}
         check(fn.launches == eager and all(n % len(eager_runs) == 0
                                            for n in launch_counts().values()),
@@ -1629,10 +1667,10 @@ def phase_graphs(proofs) -> dict:
             "bitmaps")
         del gm, tampered, eager
 
-        graph_ms, graph_runs = batch_ms(fn, batch)
-        replay_ms, _ = batch_ms(lambda _: fn.graph.replay(), batch)
+        graph_ms, graph_runs = batch_ms(fn, batch, runs=3)
+        replay_ms, _ = batch_ms(lambda _: fn.graph.replay(), batch, runs=3)
         submit_ms = []  # how long the replay call holds the host
-        for _ in range(5):
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn.graph.replay()
@@ -1644,8 +1682,8 @@ def phase_graphs(proofs) -> dict:
             f"({', '.join(f'{r:.1f}' for r in eager_runs)}), graphed {graph_ms:.3f} ms "
             f"({', '.join(f'{r:.2f}' for r in graph_runs)}), "
             f"{N_PROOFS / (graph_ms / 1e3):.1f} {unit}/s, {eager_ms / graph_ms:.2f}x; "
-            f"replay alone {replay_ms:.3f} ms (CUDA events, median of 5); the replay "
-            f"call holds the host {submit_ms[2]:.3f} ms (host clock, median of 5: "
+            f"replay alone {replay_ms:.3f} ms (CUDA events, median of 3); the replay "
+            f"call holds the host {submit_ms[1]:.3f} ms (host clock, median of 3: "
             f"{', '.join(f'{t:.2f}' for t in submit_ms)}) [{CARD}]")
         graph_profile(path, fn, batch)
         del fn, batch
@@ -1738,7 +1776,7 @@ def launch_bound(name, args) -> float:
 def phase_stwo_prover(proofs):
     """(i): the stwo prover and routed verification on the card.
 
-    ``prove_stwo()`` at PRODUCTION, unseeded and seeds 0-15: each proof
+    ``prove_stwo()`` at PRODUCTION, unseeded and seeds 0-3: each proof
     equal to its committed fixture in every field, word for word (a
     mismatch names the field and the first differing index); the first
     call (host tables included) and the median of the others by the host
@@ -1799,7 +1837,8 @@ def phase_stwo_prover(proofs):
     check_counts("stwo_prover", counts["stwo_prover"])
     bounds = {n: sum(b for k, b in record if k == n) for n in ("sha256_words", "sha256_pair")}
     steady = statistics.median(seconds[1:])
-    log(f"stwo prover: PRODUCTION unseeded and seeds 0-15 made on the card, each equal "
+    log(f"stwo prover: PRODUCTION unseeded and seeds 0-{len(PROVER_SEEDS) - 2} made on the "
+        f"card, each equal "
         f"to its fixture in every field; one proof {seconds[0]:.3f} s (first call, host "
         f"tables included), median {steady:.4f} s of the next {len(seconds) - 1} "
         f"({min(seconds[1:]):.4f}-{max(seconds[1:]):.4f} s; host clock, synchronized); "
@@ -1838,7 +1877,7 @@ def phase_stwo_prover(proofs):
         for k in want:
             check(torch.equal(masks[k][air_id::2], want[k][air_id::2]),
                   f"routed mask {k} != the single-AIR verify on air_id {air_id} lanes")
-    routed_ms, runs = batch_ms(lambda b: verify_batch_routed(b, ids, PRODUCTION), batch, runs=3)
+    routed_ms, runs = batch_ms(lambda b: verify_batch_routed(b, ids, PRODUCTION), batch, runs=1)
     log(f"routed: {N_PROOFS} lanes (fixtures air_id 0, wide_product air_id 1) all "
         f"accepted, all rejected with the ids swapped, all {len(masks)} masks equal to "
         f"the single-AIR verify of their lanes; launches {counts['routed']}; batch "
@@ -1980,9 +2019,7 @@ def phase_parallel(proofs, routed, err=None):
     each kernel's largest error, where given).
     ``verify_batch_routed_sharded``
     over phase (i)'s routed batch: its ``verify_batch_routed`` bitmap.  The
-    SP blocks at lde 13 and 18 (stwo fold and commit, every tree level) and
-    stark101's fold at 8,192 over 10 stages, bit for bit against their
-    single-device oracles.  ``prove_stwo_sharded()`` at PRODUCTION s0: its
+    SP blocks (``phase_sp``), eager and graphed.  ``prove_stwo_sharded()`` at PRODUCTION s0: its
     fixture, word for word; the lde-18 BIG proof accepted by the standard
     verify and rejected with one FRI witness word flipped.  Two processes
     verifying half the DP batch each: 4,081 in both.  The entry point's dry
@@ -2000,14 +2037,10 @@ def phase_parallel(proofs, routed, err=None):
     from stark_symphony_tpu_torch.models.stwo import proof as P
     from stark_symphony_tpu_torch.models.stwo import verifier
     from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, StwoConfig
-    from stark_symphony_tpu_torch.models.stwo.prover import _commit_leaves
-    from stark_symphony_tpu_torch.ops import field101 as F101
     from stark_symphony_tpu_torch.ops import merkle
     from stark_symphony_tpu_torch.ops.cuda import build as kbuild
     from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
-    from stark_symphony_tpu_torch.ops.field import P as M31P
     from stark_symphony_tpu_torch.ops.u32 import from_numpy, to_numpy
-    from stark_symphony_tpu_torch.parallel import fri_shard as FS
     from stark_symphony_tpu_torch.parallel.batch import (
         make_mesh,
         verify_batch_dp,
@@ -2015,7 +2048,6 @@ def phase_parallel(proofs, routed, err=None):
         verify_batch_tp,
     )
     from stark_symphony_tpu_torch.parallel.expert import verify_batch_routed_sharded
-    from stark_symphony_tpu_torch.parallel.mesh import Mesh, unshard
     from stark_symphony_tpu_torch.utils.proofcache import fixture_path
 
     counts = {}
@@ -2070,7 +2102,7 @@ def phase_parallel(proofs, routed, err=None):
     idx = rng.integers(0, 1 << top, bshape, dtype=np.uint32)
     args = (from_numpy(leaf, "cuda"), from_numpy(idx, "cuda"), from_numpy(sibs, "cuda"))
     got = ck.merkle_compute_root(*args, depths)
-    plain = merkle.compute_root_plain(*args, depths)
+    plain, k3_plain_ms = cuda_call(lambda: merkle.compute_root_plain(*args, depths))
     err = {} if err is None else err
     err["merkle_walk"] = max(err.get("merkle_walk", 0), int((got - plain).abs().max().item()))
     check(torch.equal(got, plain), "merkle_walk at a TP shard's FRI walk != plain")
@@ -2082,12 +2114,13 @@ def phase_parallel(proofs, routed, err=None):
                                                 int(depths[lane % depths.size])),
               f"merkle_walk at a TP shard's FRI walk, lane {lane} != hashlib")
     k3_ms = cuda_ms(lambda: ck.merkle_compute_root(*args, depths), 20)
-    k3_plain_ms = cuda_ms(lambda: merkle.compute_root_plain(*args, depths), 1, warm=True)
     k3_bound_ms, k3_by, _ = bound("merkle_walk", (*args, depths), [got])
+    k3_dev_ms, = one_kernel_each([("merkle_walk", lambda: ck.merkle_compute_root(*args, depths))])
     log(f"K3 merkle_walk at a TP shard's FRI walk ({bshape[0]} proofs x {depths.size} paths, "
         f"depths {top}..{int(depths.min())}, period {depths.size}): bit-equal to plain and "
-        f"hashlib; wrapper {k3_ms:.4f} ms (CUDA events, mean of 20), plain {k3_plain_ms:.3f} "
-        f"ms, bound {k3_bound_ms:.6f} ms ({k3_by}) [{CARD}]")
+        f"hashlib; wrapper {k3_ms:.4f} ms (CUDA events, mean of 20), device {k3_dev_ms:.4f} ms "
+        f"(torch.profiler, one call), plain {k3_plain_ms:.3f} ms, bound {k3_bound_ms:.6f} ms "
+        f"({k3_by}) [{CARD}]")
 
     mixed, air_ids, routed_ok, _ = routed
     (bitmap, n_ok), secs, counts["routed_sharded"] = counted(
@@ -2100,37 +2133,7 @@ def phase_parallel(proofs, routed, err=None):
         f"verify_batch_routed, {int(n_ok)} accepted; {secs:.3f} s with its ingestion; "
         f"launches {counts['routed_sharded']} [{CARD}]")
 
-    sp = Mesh(card, ("sp",))
-    for lde_log, stages in ((13, 9), (18, 14)):
-        vals = from_numpy(rng.integers(0, M31P, (1 << lde_log, 4), dtype=np.uint32), "cuda")
-        alphas = [from_numpy(rng.integers(0, M31P, 4, dtype=np.uint32), "cuda")
-                  for _ in range(stages)]
-        points = FS.stwo_domain_points(lde_log)
-        folded, fold_s = timed(lambda: unshard(sp, FS.stwo_fold_sharded(
-            vals, alphas, lde_log, sp, stages), "sp"))
-        ref, ref_s = timed(lambda: FS.stwo_fold_reference(vals, points, alphas, stages))
-        check(torch.equal(folded, ref), f"stwo_fold_sharded at lde {lde_log} != the reference")
-        (root, levels), commit_s = timed(lambda: FS.stwo_commit_sharded(
-            vals, sp, return_levels=True))
-        tree = FS.natural_levels_to_tree(levels, lde_log)
-        (ref_levels, ref_root), one_s = timed(lambda: _commit_leaves(vals, lde_log))
-        check(torch.equal(root, ref_root) and len(tree) == len(ref_levels)
-              and all(torch.equal(a, b) for a, b in zip(tree, ref_levels)),
-              f"stwo_commit_sharded at lde {lde_log}: root or a level != _commit_leaves")
-        log(f"sp: lde {lde_log}, {SHARDS} shards: stwo_fold_sharded ({stages} stages) equal "
-            f"to the reference, {fold_s:.3f} s against {ref_s:.3f} s on one shard; "
-            f"stwo_commit_sharded root and all {len(tree)} levels equal to _commit_leaves, "
-            f"{commit_s:.3f} s against {one_s:.3f} s [{CARD}]")
-    n101, stages101 = 8192, 10
-    v101 = from_numpy(rng.integers(0, F101.Q, n101, dtype=np.uint64).astype(np.uint32), "cuda")
-    x101 = from_numpy(rng.integers(1, F101.Q, n101, dtype=np.uint64).astype(np.uint32), "cuda")
-    betas = [int(rng.integers(1, F101.Q)) for _ in range(stages101)]
-    (v_sh, x_sh), s101 = timed(lambda: FS.stark101_fold_sharded(v101, x101, betas, sp, stages101))
-    v_ref, x_ref = FS.stark101_fold_reference(v101, x101, betas, stages101)
-    check(torch.equal(unshard(sp, v_sh, "sp"), v_ref) and torch.equal(unshard(sp, x_sh, "sp"), x_ref),
-          "stark101_fold_sharded != the reference")
-    log(f"sp: stark101_fold_sharded at {n101} over {stages101} stages and {SHARDS} shards "
-        f"equal to the reference; {s101:.3f} s [{CARD}]")
+    counts.update(phase_sp(rng, card))
 
     fixture = P.load_npz(str(fixture_path(PRODUCTION, 0)))
     seconds, record = [], []
@@ -2140,7 +2143,7 @@ def phase_parallel(proofs, routed, err=None):
         record.append((name, launch_bound(name, args)))
         launch(name, device, *args)
 
-    for i in range(3):
+    for i in range(2):
         kbuild.launch = recording if i == 0 else launch  # the first proof's launches
         try:
             (proof, info), secs, made = counted(
@@ -2192,6 +2195,74 @@ def phase_parallel(proofs, routed, err=None):
     return counts, 1e3 * statistics.median(seconds[1:]), eager
 
 
+def phase_sp(rng, card) -> dict:
+    """(j): the SP blocks over a mesh of the devices `card`: the stwo
+    fold and commit (every level) at lde 13 and 18 and the stark101 fold
+    at 8,192 over 10 stages on inputs from `rng`, eager against their
+    single-device oracles, then graphed (``graphed_sp``) against the eager
+    calls.  Returns the lde-18 commit's launches in its graphs by path."""
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch.models.stwo.prover import _commit_leaves
+    from stark_symphony_tpu_torch.ops import field101 as F101
+    from stark_symphony_tpu_torch.ops.field import P as M31P
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.parallel import fri_shard as FS
+    from stark_symphony_tpu_torch.parallel.mesh import Mesh, unshard
+
+    sp = Mesh(card, ("sp",))
+
+    def commit_tree(vals, lde_log, graphed):
+        root, levels = FS.stwo_commit_sharded(vals, sp, return_levels=True, graphed=graphed)
+        return [root] + FS.natural_levels_to_tree(levels, lde_log)
+
+    sp_cases = []  # (name, call(graphed), eager result, eager s) for graphed_sp
+    for lde_log, stages in ((13, 9), (18, 14)):
+        vals = from_numpy(rng.integers(0, M31P, (1 << lde_log, 4), dtype=np.uint32), "cuda")
+        alphas = [from_numpy(rng.integers(0, M31P, 4, dtype=np.uint32), "cuda")
+                  for _ in range(stages)]
+        points = FS.stwo_domain_points(lde_log)
+        folded, fold_s = timed(lambda: unshard(sp, FS.stwo_fold_sharded(
+            vals, alphas, lde_log, sp, stages), "sp"))
+        ref, ref_s = timed(lambda: FS.stwo_fold_reference(vals, points, alphas, stages))
+        check(torch.equal(folded, ref), f"stwo_fold_sharded at lde {lde_log} != the reference")
+        (root, levels), commit_s = timed(lambda: FS.stwo_commit_sharded(
+            vals, sp, return_levels=True))
+        tree = FS.natural_levels_to_tree(levels, lde_log)
+        (ref_levels, ref_root), one_s = timed(lambda: _commit_leaves(vals, lde_log))
+        check(torch.equal(root, ref_root) and len(tree) == len(ref_levels)
+              and all(torch.equal(a, b) for a, b in zip(tree, ref_levels)),
+              f"stwo_commit_sharded at lde {lde_log}: root or a level != _commit_leaves")
+        log(f"sp: lde {lde_log}, {SHARDS} shards: stwo_fold_sharded ({stages} stages) equal "
+            f"to the reference, {fold_s:.3f} s against {ref_s:.3f} s on one shard; "
+            f"stwo_commit_sharded root and all {len(tree)} levels equal to _commit_leaves, "
+            f"{commit_s:.3f} s against {one_s:.3f} s [{CARD}]")
+        sp_cases += [
+            (f"stwo fold at lde {lde_log}", lambda g, v=vals, a=alphas, n=lde_log, k=stages: [
+                unshard(sp, FS.stwo_fold_sharded(v, a, n, sp, k, graphed=g), "sp")],
+             [folded], fold_s),
+            (f"stwo commit at lde {lde_log}", lambda g, v=vals, n=lde_log: commit_tree(v, n, g),
+             [root] + tree, commit_s)]
+    n101, stages101 = 8192, 10
+    v101 = from_numpy(rng.integers(0, F101.Q, n101, dtype=np.uint64).astype(np.uint32), "cuda")
+    x101 = from_numpy(rng.integers(1, F101.Q, n101, dtype=np.uint64).astype(np.uint32), "cuda")
+    betas = [int(rng.integers(1, F101.Q)) for _ in range(stages101)]
+    (v_sh, x_sh), s101 = timed(lambda: FS.stark101_fold_sharded(v101, x101, betas, sp, stages101))
+    v_ref, x_ref = FS.stark101_fold_reference(v101, x101, betas, stages101)
+    check(torch.equal(unshard(sp, v_sh, "sp"), v_ref) and torch.equal(unshard(sp, x_sh, "sp"), x_ref),
+          "stark101_fold_sharded != the reference")
+    log(f"sp: stark101_fold_sharded at {n101} over {stages101} stages and {SHARDS} shards "
+        f"equal to the reference; {s101:.3f} s [{CARD}]")
+    sp_cases.append((f"stark101 fold at {n101}", lambda g: [
+        unshard(sp, t, "sp") for t in FS.stark101_fold_sharded(v101, x101, betas, sp, stages101,
+                                                               graphed=g)],
+        [v_ref, x_ref], s101))
+    sp_graphed = graphed_sp(sp, sp_cases, f"over {SHARDS} shards of cuda:0")
+    check_counts("sp_commit_graphed", sp_graphed["stwo commit at lde 18"])
+    return {"sp_commit_graphed": sp_graphed["stwo commit at lde 18"]}
+
+
 def graph_stats(graphs) -> str:
     """Capture, instantiate and pool of GraphedVerifiers, for a log line."""
     return ", ".join(f"capture {g.capture_s:.3f} s, instantiate {g.instantiate_s:.3f} s, "
@@ -2201,6 +2272,146 @@ def graph_stats(graphs) -> str:
 def graph_launches(graphs) -> dict:
     """The launches recorded in GraphedVerifiers, summed by kernel."""
     return {k: sum(g.launches[k] for g in graphs) for k in graphs[0].launches}
+
+
+def pools_mib(pools) -> str:
+    """The device memory held by the segments of these graph memory pools
+    (the caching allocator's snapshot), in MiB, or "not measured" where
+    the snapshot names no segment's pool."""
+    import torch
+
+    ids = {tuple(p) for p in pools if p is not None}
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured"
+    held = sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) in ids)
+    return f"{held / 2**20:.1f} MiB"
+
+
+def program_stats(graphs, pools) -> str:
+    """Count, capture, instantiate and pools of many small graphs, for a
+    log line: the pools' memory and the sum of each capture's peak; the
+    graphs counted by their K1 and K2 launches."""
+    import collections
+
+    kinds = collections.Counter((g.launches["sha256_words"], g.launches["sha256_pair"])
+                                for g in graphs)
+    return (f"{len(graphs)} graphs (by their K1, K2 launches: "
+            f"{ {k: n for k, n in sorted(kinds.items())} }), "
+            f"capture {sum(g.capture_s for g in graphs):.3f} s, "
+            f"instantiate {sum(g.instantiate_s for g in graphs):.3f} s, {len(set(pools))} "
+            f"pools holding {pools_mib(pools)} (the captures' peaks summed "
+            f"{sum(g.pool_bytes for g in graphs) / 2**20:.1f} MiB)")
+
+
+def graphed_sp(mesh, cases, where: str) -> dict:
+    """(j), (multi-GPU): each SP block of `cases`, (name, call(graphed) ->
+    a list of tensors, the eager call's list, the eager call's seconds),
+    with ``graphed=True`` on `mesh`, after a second eager call (timed,
+    its host tables made): the first call captures one program and
+    replays it, two more replay it (nothing captured again); each result
+    equal to the eager one, tensor for tensor, so to the oracles the eager
+    call was held to.  The replays launch no K1 or K2 through the
+    wrappers: every launch lies in the graphs.  Logs the seconds of the
+    first call and of the replays beside the eager call's, the program's
+    graphs, capture, instantiate and pools, and its launches.  Returns
+    each block's launches in its graphs."""
+    import torch
+
+    def same(got, want):
+        return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+    out = {}
+    for name, call, want, eager_s in cases:
+        again, again_s = timed(lambda: call(False))  # the host tables made by the first
+        check(same(again, want), f"{name} {where}: a second eager call != the first")
+        before = mesh.graphs.captures
+        reset_counts()
+        got, first_s = timed(lambda: call(True))
+        warm = launch_counts()
+        program = list(mesh.graphs.entries.values())[-1]
+        seconds = []
+        for i in range(3):
+            if i:
+                reset_counts()
+                got, secs = timed(lambda: call(True))
+                seconds.append(secs)
+            check(same(got, want), f"graphed {name} {where}, call {i + 1}: != the eager call")
+        eager = launch_counts()
+        check(mesh.graphs.captures == before + 1 and program.complete,
+              f"graphed {name} {where}: {mesh.graphs.captures - before} captures")
+        check(not any(eager.values()), f"graphed {name} {where}: a replay launched {eager} "
+              "through the wrappers")
+        out[name] = graph_launches(program.graphs)
+        log(f"sp graphed {name} {where}: equal to the eager call 3 times; first call "
+            f"{first_s:.3f} s (captures, one warm-up a step and device: launches {warm}), "
+            f"replays {', '.join(f'{x:.4f}' for x in seconds)} s, eager {again_s:.4f} s "
+            f"(its first call, with the host tables, {eager_s:.3f} s); "
+            f"{len(program.steps)} steps, {program_stats(program.graphs, program.pools.values())}"
+            f"; launches in the graphs {out[name]} [{CARD}]")
+    return out
+
+
+def per_shard_proofs(mesh, prove, eager_s: float, where: str) -> dict:
+    """(l), (multi-GPU): the sharded prover's per-shard layout on `mesh`
+    at PRODUCTION, prove(seed) -> (numpy proof, its GraphedProver): s0
+    equal to its fixture at the call that captures and at 3 replays, then
+    s1 through the same graphs equal to its fixture, one capture in all;
+    the launches in A's program and in B together PATHS', none through the
+    wrappers on the replays.  Logs the seconds beside `eager_s` (the
+    eager sharded proof), the graphs' capture, instantiate and pools and,
+    on one device, one replayed call split by its graph replays.  Returns
+    the launches in the graphs."""
+    import statistics
+
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
+
+    want = {seed: P.load_npz(str(fixture_path(PRODUCTION, seed))) for seed in (0, 1)}
+
+    def same(proof, seed, what):
+        diff = first_difference(proof, want[seed])
+        check(diff is None, f"per-shard sharded proof {where} (PRODUCTION, s{seed}), {what}: "
+              f"{diff and diff[0]} differs from its fixture first at index {diff and diff[1]}")
+
+    before = mesh.graphs.captures
+    reset_counts()
+    (proof, gp), first_s = timed(lambda: prove(0))
+    warm = launch_counts()
+    same(proof, 0, "the call that captures")
+    reset_counts()
+    seconds = []
+    for i in range(3):
+        (proof, _), secs = timed(lambda: prove(0))
+        seconds.append(secs)
+        same(proof, 0, f"replay {i + 1}")
+    (proof, _), s1_s = timed(lambda: prove(1))
+    eager = launch_counts()
+    same(proof, 1, "through s0's graphs")
+    program = gp.a.program
+    inside = graph_launches(program.graphs + [gp.b])
+    check_counts("stwo_prover_per_shard_graphed", inside)
+    check(mesh.graphs.captures == before + 1 and gp.continued == 0 and not any(eager.values()),
+          f"per-shard sharded prover {where}: {mesh.graphs.captures - before} captures, "
+          f"{gp.continued} continued, {eager} launched through the wrappers on the replays")
+    if len(set(mesh.devices)) == 1:
+        split = replay_split(lambda: prove(0))
+        split_text = (f"an unprofiled call {split['call_ms']:.3f} ms, its {split['replays']} graph "
+                      f"replays held the host {split['host_ms']:.3f} ms and spanned "
+                      f"{split['device_ms']:.3f} ms of the device (summed "
+                      f"{split['device_sum_ms']:.3f} ms)")
+    else:  # CUDA events of two devices give no elapsed time between them
+        split_text = "its split by graph replays not measured (graphs on several devices)"
+    log(f"stwo prover per-shard graphed {where}: PRODUCTION s0 equal to its fixture 4 times, "
+        f"s1 through the same graphs equal to its fixture ({s1_s:.4f} s); first call "
+        f"{first_s:.3f} s (A's {len(program.steps)} steps captured and replayed, then B: "
+        f"launches {warm}); median {statistics.median(seconds):.4f} s of the next "
+        f"{len(seconds)} ({min(seconds):.4f}-{max(seconds):.4f} s; host clock, synchronized), "
+        f"eager {eager_s:.4f} s; A: {program_stats(program.graphs, program.pools.values())}; "
+        f"B: {graph_stats([gp.b])}; launches in the graphs {inside}, through the wrappers on "
+        f"the replays {eager}; {split_text} [{CARD}]")
+    return inside
 
 
 def compiled_sharded_prover(eager_s0, sharded_ms: float, eager20) -> dict:
@@ -2214,7 +2425,10 @@ def compiled_sharded_prover(eager_s0, sharded_ms: float, eager20) -> dict:
     together PATHS', the counts over the 7 proofs their warm-up's and
     capture's alone; a profiled graphed call.  TESTING at 20 PoW bits,
     continued, equal to the eager sharded proof and to `eager20`, the
-    unsharded one.  Returns the launches in the graphs."""
+    unsharded one.  Then the per-shard layout (``per_shard_proofs``) over
+    8 shards of cuda:0, through ``prover_sharded.per_shard_prover``, its
+    time beside graph A's.  Returns the launches in each layout's graphs
+    by path."""
     import dataclasses
     import statistics
 
@@ -2223,6 +2437,7 @@ def compiled_sharded_prover(eager_s0, sharded_ms: float, eager20) -> dict:
     from stark_symphony_tpu_torch.models.stwo import prover, prover_sharded
     from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
     from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.parallel.mesh import Mesh
     from stark_symphony_tpu_torch.utils.proofcache import fixture_path
 
     mesh = E.sharded_prover_mesh("cuda", SHARDS)
@@ -2286,7 +2501,22 @@ def compiled_sharded_prover(eager_s0, sharded_ms: float, eager20) -> dict:
         f"chunk missed, the eager grind carried on to nonce "
         f"{int(eager20.pow_nonce[0]) << 32 | int(eager20.pow_nonce[1])}; the proof equals the "
         "eager sharded and unsharded ones in every field")
-    return graphed
+
+    # the layout a mesh over several cards takes, here over 8 shards of
+    # cuda:0 through prover_sharded.per_shard_prover, beside graph A's time
+    card = Mesh(["cuda:0"] * SHARDS, ("sp",))
+
+    def per_shard(seed):
+        trace = from_numpy(prover.seeded_trace(PRODUCTION, seed), "cuda")
+        gp = prover_sharded.per_shard_prover(PRODUCTION, card, "sp", trace)
+        return prover._to_numpy_proof(gp(trace)), gp
+
+    per_shard_counts = per_shard_proofs(
+        card, per_shard, sharded_ms / 1e3,
+        f"over {SHARDS} shards of cuda:0 (graph A, above: median "
+        f"{statistics.median(seconds):.4f} s)")
+    return {"stwo_prover_sharded_graphed": graphed,
+            "stwo_prover_per_shard_graphed": per_shard_counts}
 
 
 def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded, sharded_ms) -> dict:
@@ -2294,12 +2524,12 @@ def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded, sharded_ms) ->
     graphs and replayed, each result held to its eager run's.
 
     The stwo prover (``prove_stwo(graphed=True)``, graphs A and B around
-    the PoW grind) at PRODUCTION, unseeded and seeds 0-15: each proof equal
+    the PoW grind) at PRODUCTION, unseeded and seeds 0-3: each proof equal
     to its fixture and to phase (i)'s eager proof, word for word; A's and
-    B's launches together equal PATHS, and the counts over the 17 proofs
+    B's launches together equal PATHS, and the counts over the 5 proofs
     are the warm-up's and the capture's alone (a replay launches nothing
     through the wrappers); capture, instantiate and pool of A and B, the
-    first call (with the capture) and the median of the 16 replays by the
+    first call (with the capture) and the median of the 4 replays by the
     host clock, the device's busy share of one profiled graphed proof.
     The continuation: TESTING at 20 PoW bits, where the first chunk
     misses, equal to the eager proof.  The sharded prover
@@ -2371,10 +2601,12 @@ def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded, sharded_ms) ->
     check_counts("stwo_prover_graphed", counts["stwo_prover_graphed"])
     check(made == {k: 2 * n for k, n in counts["stwo_prover_graphed"].items()}
           and gp.continued == 0,
-          f"graphed stwo prover: {made} launched over 17 proofs, want one warm-up and one "
+          f"graphed stwo prover: {made} launched over {len(PROVER_SEEDS)} proofs, want one "
+          f"warm-up and one "
           f"capture of A and B {counts['stwo_prover_graphed']}; {gp.continued} continued")
     steady = statistics.median(seconds[1:])
-    log(f"stwo prover graphed: PRODUCTION unseeded and seeds 0-15, each equal to its fixture "
+    log(f"stwo prover graphed: PRODUCTION unseeded and seeds 0-{len(PROVER_SEEDS) - 2}, each "
+        f"equal to its fixture "
         f"and to the eager proof in every field; first call {seconds[0]:.3f} s (one warm-up, "
         f"capture of A, one replay, capture of B); median {steady:.4f} s of the next "
         f"{len(seconds) - 1} ({min(seconds[1:]):.4f}-{max(seconds[1:]):.4f} s; host clock, "
@@ -2396,8 +2628,7 @@ def phase_compiled(proofs, stwo_eager, prove_ms, routed, sharded, sharded_ms) ->
         f"{prover.n_candidates(cfg20)} missed, the eager grind carried on to nonce {nonce}; the "
         "proof equals the eager one in every field")
 
-    counts["stwo_prover_sharded_graphed"] = compiled_sharded_prover(
-        sharded["stwo_prover_sharded"], sharded_ms, eager20)
+    counts.update(compiled_sharded_prover(sharded["stwo_prover_sharded"], sharded_ms, eager20))
 
     golden = P101.load_json(str(E.STARK101_GOLDEN))
     (eager101, info_e), eager101_s = timed(E.prove_stark101)
@@ -2500,28 +2731,19 @@ def phase_multi_gpu(proofs, per_device: int = 1024):
     backend is nccl), each timing its second call.  Then, across the devices, TP
     at dp1 x tp4 (tp2 on fewer than 4 devices), the stwo fold and commit
     at lde 18 and the PRODUCTION sharded proof over 8 shards spread over
-    them, each against its single-device oracle, and the graphed sharded
-    proof over that mesh refused with ValueError.  On one device, prints
-    that none of it was measured."""
+    them (``multi_gpu_sp``).  On one device, prints that none of it was
+    measured."""
     import torch
 
     n_gpu = torch.cuda.device_count()
     if n_gpu < 2:
         log("dp scaling efficiency over devices: not measured (one device)")
         return
-    import numpy as np
-
     from stark_symphony_tpu_torch import entry as E
     from stark_symphony_tpu_torch.models.stwo import proof as P
-    from stark_symphony_tpu_torch.models.stwo import prover_sharded, verifier
+    from stark_symphony_tpu_torch.models.stwo import verifier
     from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
-    from stark_symphony_tpu_torch.models.stwo.prover import _commit_leaves, seeded_trace
-    from stark_symphony_tpu_torch.ops.field import P as M31P
-    from stark_symphony_tpu_torch.ops.u32 import from_numpy
-    from stark_symphony_tpu_torch.parallel import fri_shard as FS
     from stark_symphony_tpu_torch.parallel.batch import make_mesh, verify_batch_dp, verify_batch_tp
-    from stark_symphony_tpu_torch.parallel.mesh import Mesh, unshard
-    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
 
     n_bad = len(PROD_TAMPERS)
     total = n_gpu * per_device
@@ -2566,35 +2788,85 @@ def phase_multi_gpu(proofs, per_device: int = 1024):
     (bitmap, _), tp_s = timed(lambda: verify_batch_tp(
         P.map_fields(lambda x: x[:512], batch), PRODUCTION, make_mesh(tp, tp=tp, devices=devs)))
     check(torch.equal(bitmap, want[:512]), f"tp over {devs} != verify")
+    log(f"across {n_gpu} devices: tp over {tp} shards {tp_s:.3f} s, equal to verify "
+        f"[{CARD} x {n_gpu}]")
+    multi_gpu_sp(n_gpu)
+
+
+def multi_gpu_sp(n_gpu: int) -> None:
+    """(j) with two or more devices: over 8 shards spread over the
+    `n_gpu` devices, the stwo fold and commit at lde 18 and the PRODUCTION
+    sharded proof, eager, against their single-device oracles; then
+    graphed, the fold and commit (``graphed_sp``: equal to the eager
+    calls) and ``prove_sharded(graphed=True)``, which takes the per-shard
+    layout there (``per_shard_proofs``: s0's and s1's fixtures through one
+    capture, its time beside the eager proof's).  Logs ``nvidia-smi topo
+    -m`` and ``nvlink --status`` and the devices' peer access: what joins
+    the cards that the exchanges cross."""
+    import numpy as np
+    import torch
+
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import prover_sharded
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+    from stark_symphony_tpu_torch.models.stwo.prover import _commit_leaves, seeded_trace
+    from stark_symphony_tpu_torch.ops.field import P as M31P
+    from stark_symphony_tpu_torch.ops.u32 import from_numpy
+    from stark_symphony_tpu_torch.parallel import fri_shard as FS
+    from stark_symphony_tpu_torch.parallel.mesh import Mesh, unshard
+    from stark_symphony_tpu_torch.utils.proofcache import fixture_path
+
+    for query in (["topo", "-m"], ["nvlink", "--status"]):
+        out = subprocess.run(["nvidia-smi", *query], capture_output=True, text=True, timeout=60)
+        log(f"nvidia-smi {' '.join(query)} (exit {out.returncode}):\n"
+            f"{(out.stdout + out.stderr).rstrip()}")
+    peers = [torch.cuda.can_device_access_peer(i, j)
+             for i in range(n_gpu) for j in range(n_gpu) if i != j]
+    log(f"peer access: {sum(peers)} of the {len(peers)} ordered pairs of devices")
     spread = [f"cuda:{i % n_gpu}" for i in range(SHARDS)]
     sp = Mesh(spread, ("sp",))
     rng = np.random.default_rng(20261019)
     vals = from_numpy(rng.integers(0, M31P, (1 << 18, 4), dtype=np.uint32), "cuda:0")
     alphas = [from_numpy(rng.integers(0, M31P, 4, dtype=np.uint32), "cuda:0") for _ in range(14)]
-    folded, fold_s = timed(lambda: unshard(sp, FS.stwo_fold_sharded(vals, alphas, 18, sp, 14),
-                                           "sp"))
-    check(torch.equal(folded, FS.stwo_fold_reference(vals, FS.stwo_domain_points(18), alphas,
-                                                     14)), "stwo_fold_sharded across devices")
-    root, commit_s = timed(lambda: FS.stwo_commit_sharded(vals, sp))
-    check(torch.equal(root, _commit_leaves(vals, 18)[1]), "stwo_commit_sharded across devices")
-    (proof, _), prove_s = timed(lambda: prover_sharded.prove_sharded(
-        PRODUCTION, sp, trace=seeded_trace(PRODUCTION, 0)))
-    check(first_difference(proof, P.load_npz(str(fixture_path(PRODUCTION, 0)))) is None,
-          "the sharded proof across devices differs from its fixture")
-    try:  # graph A is one capture on one device: a mesh over several is refused
-        prover_sharded.prove_sharded(PRODUCTION, sp, trace=seeded_trace(PRODUCTION, 0),
-                                     graphed=True)
-        refused = None
-    except ValueError as exc:
-        refused = str(exc)
-    check(refused is not None and sp.graphs.captures == 0,
-          f"prove_sharded(graphed=True) over {n_gpu} devices ran instead of raising ValueError")
-    log(f"across {n_gpu} devices: prove_sharded(graphed=True) refused with ValueError: "
-        f"{refused}")
-    log(f"across {n_gpu} devices: tp over {tp} shards {tp_s:.3f} s, equal to verify; lde-18 "
-        f"fold (14 stages) {fold_s:.3f} s and commit {commit_s:.3f} s over {SHARDS} shards, "
-        f"equal to their oracles; PRODUCTION sharded proof {prove_s:.3f} s, equal to its "
-        f"fixture [{CARD} x {n_gpu}]")
+
+    def fold(graphed):
+        return [unshard(sp, FS.stwo_fold_sharded(vals, alphas, 18, sp, 14, graphed=graphed), "sp")]
+
+    def commit(graphed):
+        root, levels = FS.stwo_commit_sharded(vals, sp, return_levels=True, graphed=graphed)
+        return [root] + FS.natural_levels_to_tree(levels, 18)
+
+    folded, fold_s = timed(lambda: fold(False))
+    check(torch.equal(folded[0], FS.stwo_fold_reference(vals, FS.stwo_domain_points(18), alphas,
+                                                        14)), "stwo_fold_sharded across devices")
+    tree, commit_s = timed(lambda: commit(False))
+    ref_levels, ref_root = _commit_leaves(vals, 18)
+    check(torch.equal(tree[0], ref_root) and all(torch.equal(a, b)
+                                                 for a, b in zip(tree[1:], ref_levels)),
+          "stwo_commit_sharded across devices: root or a level != _commit_leaves")
+    prove_s = []
+    for _ in range(2):  # the first call makes each device's host tables
+        (proof, _), secs = timed(lambda: prover_sharded.prove_sharded(
+            PRODUCTION, sp, trace=seeded_trace(PRODUCTION, 0)))
+        prove_s.append(secs)
+        check(first_difference(proof, P.load_npz(str(fixture_path(PRODUCTION, 0)))) is None,
+              "the sharded proof across devices differs from its fixture")
+    log(f"across {n_gpu} devices: lde-18 fold (14 stages) {fold_s:.3f} s and commit "
+        f"{commit_s:.3f} s over {SHARDS} shards, equal to their oracles; PRODUCTION sharded "
+        f"proof {prove_s[0]:.3f} s, then {prove_s[1]:.4f} s, equal to its fixture "
+        f"[{CARD} x {n_gpu}]")
+    where = f"over {SHARDS} shards on {n_gpu} devices"
+    graphed_sp(sp, [("stwo fold at lde 18", fold, folded, fold_s),
+                    ("stwo commit at lde 18", commit, tree, commit_s)], where)
+    check(prover_sharded.per_shard_layout(sp), f"a mesh over {n_gpu} devices took graph A")
+
+    def prove(seed):
+        trace = seeded_trace(PRODUCTION, seed)
+        proof, _ = prover_sharded.prove_sharded(PRODUCTION, sp, trace=trace, graphed=True)
+        return proof, prover_sharded.graphed_prover(PRODUCTION, sp, "sp",
+                                                    from_numpy(trace, sp.devices[0]))
+
+    per_shard_proofs(sp, prove, prove_s[1], f"{where}, prove_sharded(graphed=True)")
 
 
 def phase_tools(proofs) -> dict:

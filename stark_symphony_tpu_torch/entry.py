@@ -134,7 +134,11 @@ def prove_stwo(cfg=PRODUCTION, seed=None, air: str = "wide_fibonacci", device: s
 def sharded_prover_mesh(device: str = "cuda", n_shards: int = 8) -> Mesh:
     """The ("sp",) mesh of n_shards shards on `device` that
     prove_stwo_sharded proves over, made once per (device, n_shards), so
-    its graphs (``mesh.graphs``) serve every later call."""
+    its graphs (``mesh.graphs``) serve every later call.  Its shards share
+    one device, so a graphed proof over it takes graph A as one capture
+    (``prover_sharded.graphed_prover``); a mesh over several devices,
+    made with ``parallel.mesh.Mesh`` and passed to
+    ``prover_sharded.prove_sharded``, takes the per-shard layout."""
     return Mesh([device] * n_shards, ("sp",))
 
 
@@ -144,8 +148,11 @@ def prove_stwo_sharded(cfg=PRODUCTION, seed=None, n_shards: int = 8, device: str
     on `device` (``models/stwo/prover_sharded.py``), on the trace of the
     proof cache's (cfg, seed, air) entry: (StwoProof of numpy words,
     {"n_sharded_layers": k}); `graphed`: two CUDA graphs around the PoW
-    grind, the exchanges inside the first (``prover_sharded.graphed_prover``),
-    captured once per (cfg, air) on the mesh of (device, n_shards)."""
+    grind, every shard's work and the exchanges inside the first, since
+    the shards share `device` (``prover_sharded.graphed_prover``; over
+    several devices ``prove_sharded(graphed=True)`` replays a graph a
+    shard body instead), captured once per (cfg, air) on the mesh of
+    (device, n_shards)."""
     return prover_sharded.prove_sharded(cfg, sharded_prover_mesh(device, n_shards),
                                         trace=prover.seeded_trace(cfg, seed, air), air=air,
                                         graphed=graphed)

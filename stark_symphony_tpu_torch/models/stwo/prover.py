@@ -458,21 +458,21 @@ class GraphedProver:
     compiles ``_prove_jit`` with its grind inside (a graph cannot hold
     the grind's data-dependent loop).
 
-    Graph A (`segment_a(trace) -> SegmentA`) runs on the trace through
-    the first PoW chunk; one host read takes its 3 words (found, hi, lo);
-    where the chunk found nothing, ``pow_grind`` carries on eagerly from
-    chunk 2; graph B (`segment_b(a, nonce) -> StwoProof`) reads A's
-    outputs in place, shares A's memory pool and takes the nonce as its
-    static input.  B is captured at the first call, once A has run.
-    ``continued`` counts the calls whose first chunk missed.  On the CPU
-    the same segments run without graphs.  ``graphed_prover`` passes this
-    module's ``_segment_a`` and ``_segment_b``, ``prover_sharded`` its
-    own."""
+    Graph A (`a`, captured: ``a.replay(trace) -> SegmentA``) runs on the
+    trace through the first PoW chunk; one host read takes its 3 words
+    (found, hi, lo); where the chunk found nothing, ``pow_grind`` carries
+    on eagerly from chunk 2; graph B (`segment_b(a, nonce) -> StwoProof`)
+    reads A's outputs (``a.out``) in place, shares A's memory pool
+    (``a.pool``) and takes the nonce as its static input.  B is captured
+    at the first call, once A has run.  ``continued`` counts the calls
+    whose first chunk missed.  On the CPU the same segments run without
+    graphs.  ``graphed_prover`` passes this module's ``_segment_a``
+    captured and ``_segment_b``; ``prover_sharded`` its own."""
 
-    def __init__(self, cfg: StwoConfig, trace, segment_a, segment_b):
+    def __init__(self, cfg: StwoConfig, a, segment_b):
         self.cfg = cfg
         self.segment_b = segment_b
-        self.a = TB.capture(segment_a, (trace,), warmup=1)
+        self.a = a
         self.b = None
         self.continued = 0
 
@@ -498,7 +498,8 @@ def graphed_prover(cfg: StwoConfig, trace, air: str = "wide_fibonacci") -> Graph
     """The GraphedProver of (cfg, air) for `trace`'s shape and device,
     captured at its first use."""
     return GRAPHS.get((cfg, air), (trace,), lambda: GraphedProver(
-        cfg, trace, lambda t: _segment_a(cfg, t, air), lambda a, n: _segment_b(cfg, a, n)))
+        cfg, TB.capture(lambda t: _segment_a(cfg, t, air), (trace,), warmup=1),
+        lambda a, n: _segment_b(cfg, a, n)))
 
 
 def _to_numpy_proof(proof: StwoProof) -> StwoProof:

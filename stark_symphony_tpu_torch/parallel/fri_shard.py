@@ -21,15 +21,24 @@ Exchange pattern (D shards, chunk C = N/D), the JAX package's:
 adjacent bit-reversed leaf slots (2t, 2t+1) are the natural positions
 (i, i + N/2), so the tree rises in natural-index order with one sibling
 ppermute, one K2 launch a shard and one rebalance a level; the top
-log2(D) levels follow an all_gather of one digest a shard, computed once
-on the mesh's first device.  Its root equals ``prover._commit_leaves``'s.
+log2(D) levels follow a gather of one digest a shard, computed once on
+the mesh's first device.  Its root equals ``prover._commit_leaves``'s.
 
 The sharded functions take a whole tensor (split over the axis first) or
 an already sharded value, and return sharded values:
-``mesh.unshard`` gathers one.
+``mesh.unshard`` gathers one.  With ``graphed=True`` each is one graphed
+sharded call (``Mesh.graphed``), as JAX compiles it with ``jax.jit(
+shard_map(...))``: every fold stage's body, every leaf hash, every
+level's nodes and the top levels replay from a graph on their shard's
+device, captured at the first call of a key and input specs; the fold
+randomness and the coordinates enter each graph as static inputs, copied
+in at every replay; the exchanges run eagerly between the replays.  The
+result is the eager call's, word for word.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -38,11 +47,17 @@ from ..ops import field as F
 from ..ops import field101 as F101
 from ..ops.sha256 import sha256_pair, sha256_words
 from ..ops.u32 import WORD, from_numpy
-from .mesh import Mesh, all_gather, ppermute
+from .mesh import Mesh, ppermute, unshard
 
 
 def _sharded(mesh: Mesh, x, axis: str) -> list:
     return x if isinstance(x, list) else mesh.shard(x, axis)
+
+
+def _call(mesh: Mesh, graphed: bool, key, args):
+    """The context of a sharded call: a graphed one (``Mesh.graphed``) or
+    none."""
+    return mesh.graphed(key, args) if graphed else contextlib.nullcontext()
 
 
 def _lower_half(mesh: Mesh, axis: str) -> list:
@@ -68,7 +83,7 @@ def _rebalance(mesh: Mesh, chunks: list, axis: str) -> list:
 
 
 def sharded_fold(values, coords, betas, mesh: Mesh, *, fold_fn, coord_step,
-                 n_stages: int, axis_name: str = "sp"):
+                 n_stages: int, axis_name: str = "sp", graphed: bool = False):
     """Run `n_stages` FRI fold stages with the evaluation domain sharded
     over `mesh` axis `axis_name`.
 
@@ -83,7 +98,10 @@ def sharded_fold(values, coords, betas, mesh: Mesh, *, fold_fn, coord_step,
     layer, and nothing is carried from stage to stage.  Needs an even axis
     and N / D divisible by 2**n_stages.  Returns (values', coords') of
     N / 2**n_stages positions, sharded the same way (coords' None with
-    coord_step None)."""
+    coord_step None).  `graphed`: each stage's body replays from a graph a
+    shard that keeps the fold, the betas and coords its static inputs;
+    the graphs are kept by the functions, the stage count and the inputs'
+    specs."""
     n_dev = mesh.shape[axis_name]
     v = _sharded(mesh, values, axis_name)
     per_stage = coord_step is None
@@ -98,23 +116,24 @@ def sharded_fold(values, coords, betas, mesh: Mesh, *, fold_fn, coord_step,
     fold_fns = list(fold_fn) if isinstance(fold_fn, (list, tuple)) else [fold_fn] * n_stages
     steps = (list(coord_step) if isinstance(coord_step, (list, tuple))
              else [coord_step] * n_stages)
+    betas = [torch.as_tensor(b, dtype=WORD) for b in betas]
     low = _lower_half(mesh, axis_name)
-    for s in range(n_stages):
-        if per_stage:
-            x = _sharded(mesh, coords[s], axis_name)
-        sib = ppermute(mesh, v, axis_name, _sibling_perm(n_dev))
-        beta = torch.as_tensor(betas[s], dtype=WORD)
-        betas_s = [beta.to(dev) for dev in mesh.devices]
+    key = ("sharded_fold", axis_name, n_stages, tuple(fold_fns), tuple(steps))
+    with _call(mesh, graphed, key, (v, coords if per_stage else x, betas)):
+        for s in range(n_stages):
+            if per_stage:
+                x = _sharded(mesh, coords[s], axis_name)
+            sib = ppermute(mesh, v, axis_name, _sibling_perm(n_dev))
+            betas_s = [betas[s].to(dev) for dev in mesh.devices]
 
-        def stage(a, b, pt, bt, keep, s=s):
-            if not keep:
-                return None, None
-            return fold_fns[s](a, b, pt, bt), None if per_stage else steps[s](pt)
+            def stage(a, b, pt, bt, s=s):
+                return fold_fns[s](a, b, pt, bt), None if per_stage else steps[s](pt)
 
-        out = mesh.run(stage, v, sib, x, betas_s, low)
-        v = _rebalance(mesh, [o[0] for o in out], axis_name)
-        x = None if per_stage else _rebalance(mesh, [o[1] for o in out], axis_name)
-    return v, x
+            out = mesh.run(stage, v, sib, x, betas_s, where=low)
+            v = _rebalance(mesh, [None if o is None else o[0] for o in out], axis_name)
+            if not per_stage:
+                x = _rebalance(mesh, [None if o is None else o[1] for o in out], axis_name)
+    return v, None if per_stage else x
 
 
 # stark101: out[i] = (a+b)/2 + beta*(a-b)/(2*x_i), x <- x^2
@@ -144,11 +163,12 @@ def stark101_fold_reference(values, x_invs, betas, n_stages: int):
 
 
 def stark101_fold_sharded(values, x_invs, betas, mesh: Mesh, n_stages: int,
-                          axis_name: str = "sp"):
-    """The stark101 FRI fold with the LDE domain sharded over `axis_name`."""
+                          axis_name: str = "sp", graphed: bool = False):
+    """The stark101 FRI fold with the LDE domain sharded over `axis_name`
+    (`graphed`: as ``sharded_fold``'s)."""
     return sharded_fold(values, x_invs, betas, mesh, fold_fn=_stark101_fold,
                         coord_step=_stark101_square, n_stages=n_stages,
-                        axis_name=axis_name)
+                        axis_name=axis_name, graphed=graphed)
 
 
 # stwo: the circle fold (divide by y), then line folds (divide by x, with
@@ -201,13 +221,13 @@ def stwo_fold_reference(values, points, alphas, n_stages: int):
 
 
 def stwo_fold_sharded(values, alphas, lde_log: int, mesh: Mesh, n_stages: int,
-                      axis_name: str = "sp"):
+                      axis_name: str = "sp", graphed: bool = False):
     """stwo FRI folds (circle, then line) with the LDE domain sharded over
     `axis_name`: a stage is one sibling ppermute and a rebalance.
 
     values: (N, 4) QM31 first-layer evaluations in natural position order
     (whole or sharded); alphas: n_stages (4,) fold randomness values.
-    Returns the folded values, sharded."""
+    `graphed`: as ``sharded_fold``'s.  Returns the folded values, sharded."""
     v = _sharded(mesh, values, axis_name)
     n = sum(v[i].shape[0] for i in mesh.groups(axis_name)[0])
     if n != 1 << lde_log:
@@ -216,12 +236,22 @@ def stwo_fold_sharded(values, alphas, lde_log: int, mesh: Mesh, n_stages: int,
     fold_fns = [_stwo_circle_fold] + [_stwo_line_fold] * (n_stages - 1)
     steps = [_same_points] + [_stwo_pi_step] * (n_stages - 1)
     out, _ = sharded_fold(v, points, alphas, mesh, fold_fn=fold_fns, coord_step=steps,
-                          n_stages=n_stages, axis_name=axis_name)
+                          n_stages=n_stages, axis_name=axis_name, graphed=graphed)
     return out
 
 
+def _top_levels(top):
+    """The levels above a (D, 8) row of digests, up to the (1, 8) root."""
+    levels = []
+    while top.shape[0] > 1:
+        half = top.shape[0] // 2
+        top = sha256_pair(top[:half], top[half:])
+        levels.append(top)
+    return levels
+
+
 def stwo_commit_sharded(values, mesh: Mesh, axis_name: str = "sp",
-                        return_levels: bool = False):
+                        return_levels: bool = False, graphed: bool = False):
     """Merkle root of a sharded stwo FRI or trace layer.
 
     values: (N, W) M31/QM31 leaf words in NATURAL position order (leaf s
@@ -229,7 +259,9 @@ def stwo_commit_sharded(values, mesh: Mesh, axis_name: str = "sp",
     sharded.  On a CUDA mesh: one K1 launch a shard for the leaves, then a
     level at a time one sibling ppermute, one K2 launch on each shard that
     keeps the level's nodes, and a rebalance; the top log2(D) levels are
-    one K2 launch each on the mesh's first device.
+    one K2 launch each on the mesh's first device.  `graphed`: the leaf
+    hash, each level's nodes and the top levels replay from graphs, kept
+    by the axis and the leaves' specs.
 
     Returns the (8,) root on the mesh's first device; with
     `return_levels` also the levels in NATURAL index order, leaves first:
@@ -246,23 +278,19 @@ def stwo_commit_sharded(values, mesh: Mesh, axis_name: str = "sp",
     low = _lower_half(mesh, axis_name)
     group = mesh.groups(axis_name)[0]
 
-    cur = mesh.run(sha256_words, shards)
-    levels = [[cur[i] for i in group]]
-    for _ in range(n_dist_levels):
-        sib = ppermute(mesh, cur, axis_name, _sibling_perm(n_dev))
-        # natural-order node: left = this shard's chunk (d < D/2), right =
-        # the sibling from shard d + D/2
-        node = mesh.run(lambda c, s, keep: sha256_pair(c, s) if keep else None, cur, sib, low)
-        cur = _rebalance(mesh, node, axis_name)
-        levels.append([cur[i] for i in group])
-    top = all_gather(mesh, cur, axis_name)[group[0]]  # (D, 8), one digest a shard
-    size = n_dev
-    while size > 1:
-        half = size // 2
-        top = sha256_pair(top[:half], top[half:size])
-        levels.append(top)
-        size = half
-    root = top[0]
+    with _call(mesh, graphed, ("stwo_commit_sharded", axis_name), (shards,)):
+        cur = mesh.run(sha256_words, shards)
+        levels = [[cur[i] for i in group]]
+        for _ in range(n_dist_levels):
+            sib = ppermute(mesh, cur, axis_name, _sibling_perm(n_dev))
+            # natural-order node: left = this shard's chunk (d < D/2), right =
+            # the sibling from shard d + D/2
+            node = mesh.run(sha256_pair, cur, sib, where=low)
+            cur = _rebalance(mesh, node, axis_name)
+            levels.append([cur[i] for i in group])
+        # JAX all_gathers one digest a shard; the first device's copy is the one read
+        levels += mesh.run_first(_top_levels, unshard(mesh, cur, axis_name))
+    root = levels[-1][0]
     return (root, levels) if return_levels else root
 
 

@@ -22,6 +22,17 @@ tensors (or proofs), one for each place of the grid in row-major order.
 * ``Mesh.capture(fn, *sharded)`` captures ``fn`` as a CUDA graph once a
   shard, on the shard's stream, and replays them as ``run`` runs ``fn``
   (``GraphedShards``); the collectives stay outside the graphs.
+* ``run(..., where=mask)`` runs ``fn`` on the shards the mask names
+  alone (the others get None, and their streams are left alone);
+  ``run_first`` runs it on the first shard, the mesh's first device.
+* ``Mesh.graphed(key, args)``: the counterpart of ``jax.jit(shard_map(
+  ...))`` for a sharded call that makes several runs with exchanges
+  between them.  Inside it every ``run`` is one step of a
+  ``ShardProgram``, kept in ``mesh.graphs`` by key and input specs: the
+  first call captures each step's shard bodies (``capture``) and replays
+  them; a later call replays the k-th step's graphs at its k-th run.
+  The exchanges between the runs stay eager, on the devices' current
+  streams.  A call that makes another sequence of runs raises.
 * ``ppermute`` moves tensors between the shards of one axis: every
   destination gets a new tensor on its device (``Tensor.to(..., copy=True)``;
   between two GPUs a peer copy), never the source tensor itself.  A
@@ -35,6 +46,7 @@ tensors (or proofs), one for each place of the grid in row-major order.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -66,7 +78,8 @@ class Mesh:
         self.process_axis = process_axis
         self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                          for d in self.devices]
-        self.graphs = TB.GraphCache()  # the sharded paths' GraphedShards
+        self.graphs = TB.GraphCache()  # the sharded paths' GraphedShards and ShardPrograms
+        self.program = None  # the ShardProgram of the graphed call in progress
 
     def coords(self, i: int) -> dict:
         """The grid coordinates of shard i, by axis name."""
@@ -94,27 +107,48 @@ class Mesh:
             if len(a) != self.size:
                 raise ValueError(f"a sharded value of {len(a)} shards on a mesh of {self.size}")
 
-    def run(self, fn, *sharded):
+    def run(self, fn, *sharded, where=None):
         """[fn(*args of shard i) for every shard i], each CUDA shard's work
-        issued on its own stream (see the module docstring)."""
+        issued on its own stream (see the module docstring).  `where`: a
+        bool a shard, the shards that run fn; the others give None.
+        Inside a graphed call (``graphed``) this replays the call's next
+        step."""
         self._check_sharded(sharded)
-        for dev, s in zip(self.devices, self._streams):
-            if s is not None:
-                s.wait_stream(torch.cuda.current_stream(dev))
+        if self.program is not None:
+            return self.program.step(fn, sharded, where)
+        return self._issue(fn, sharded, where)
+
+    def run_first(self, fn, *args):
+        """fn(*args) on the first shard alone, a ``run`` whose other shards
+        idle: in a graphed call, a graph on the mesh's first device."""
+        idle = [None] * (self.size - 1)
+        return self.run(fn, *([a] + idle for a in args),
+                        where=[True] + [False] * (self.size - 1))[0]
+
+    def _active(self, where) -> list:
+        """`where` (``run``'s) as a bool a shard: all True for None."""
+        return [True] * self.size if where is None else [bool(w) for w in where]
+
+    def _issue(self, fn, sharded, where):
+        active = self._active(where)
+        streams = [s for s, on in zip(self._streams, active) if on and s is not None]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(s.device))
         out = []
         for i, s in enumerate(self._streams):
             args = [a[i] for a in sharded]
-            if s is None:
+            if not active[i]:
+                out.append(None)
+            elif s is None:
                 out.append(fn(*args))
             else:
                 with torch.cuda.stream(s):
                     out.append(fn(*args))
-        for dev, s in zip(self.devices, self._streams):
-            if s is not None:
-                torch.cuda.current_stream(dev).wait_stream(s)
+        for s in streams:
+            torch.cuda.current_stream(s.device).wait_stream(s)
         return out
 
-    def capture(self, fn, *sharded) -> "GraphedShards":
+    def capture(self, fn, *sharded, where=None, pools=None) -> "GraphedShards":
         """`fn` captured as a CUDA graph once a shard (``tools/build.capture``
         on the shard's arguments of `sharded`, on the shard's own stream),
         the counterpart of compiling the body of JAX's ``shard_map``;
@@ -124,14 +158,33 @@ class Mesh:
         before its first shard's capture: it builds the device's tables
         and constants, which the device's other shards, running `fn` at
         the same shapes, share (a capture that would have to make one
-        raises).  A CPU shard keeps no graph and runs `fn` at each call."""
+        raises).  A CPU shard keeps no graph and runs `fn` at each call.
+        `where`: the shards to capture, as ``run`` takes it (the others
+        hold None).  `pools`: a dict, shard index -> the pool of an
+        earlier graph of that shard that always replays before this one;
+        each shard's new graph shares it, and leaves its own pool there."""
         self._check_sharded(sharded)
         graphs, warm = [], set()
-        for i, (dev, s) in enumerate(zip(self.devices, self._streams)):
-            graphs.append(TB.capture(fn, tuple(a[i] for a in sharded),
-                                     warmup=int(dev not in warm), stream=s))
+        for i, (dev, s, on) in enumerate(zip(self.devices, self._streams, self._active(where))):
+            if not on:
+                graphs.append(None)
+                continue
+            g = TB.capture(fn, tuple(a[i] for a in sharded), warmup=int(dev not in warm),
+                           stream=s, pool=None if pools is None else pools.get(i))
+            if pools is not None:
+                pools[i] = g.pool
+            graphs.append(g)
             warm.add(dev)
         return GraphedShards(self, graphs)
+
+    def graphed(self, key, args):
+        """A context in which every ``run`` is a step of the ShardProgram
+        of (key, the specs of `args`), made at the first such call and kept
+        in ``self.graphs``; inside a graphed call already in progress, the
+        call joins it (a null context)."""
+        if self.program is not None:
+            return contextlib.nullcontext()
+        return self.graphs.get(key, args, lambda: ShardProgram(self))
 
     def shard(self, x: torch.Tensor, axis: str) -> list:
         """`x` split along its leading dimension over `axis` in contiguous
@@ -148,17 +201,79 @@ class GraphedShards:
 
     ``run(*sharded)`` replays each shard's graph on the shard's stream,
     with ``Mesh.run``'s fences, after copying the shard's arguments into
-    its static inputs; it returns the copies of each shard's outputs.  A
-    shard called with other shapes than its capture's raises ValueError.
-    ``graphs``: the shards' ``GraphedVerifier``s (their launches, capture
-    and instantiate seconds and pools)."""
+    its static inputs; it returns the copies of each shard's outputs (None
+    where the shard has no graph).  A shard called with other shapes than
+    its capture's raises ValueError.  ``graphs``: the shards'
+    ``GraphedVerifier``s, or None (their launches, capture and instantiate
+    seconds and pools)."""
 
     def __init__(self, mesh: Mesh, graphs: list):
         self.mesh = mesh
         self.graphs = graphs
 
     def run(self, *sharded) -> list:
-        return self.mesh.run(lambda g, *args: g(*args), self.graphs, *sharded)
+        return self.mesh._issue(lambda g, *args: g(*args), (self.graphs, *sharded),
+                                [g is not None for g in self.graphs])
+
+
+class ShardProgram:
+    """The per-shard graphs of one graphed sharded call (``Mesh.graphed``),
+    step by step: the k-th ``Mesh.run`` of the call is step k.
+
+    Used as a context on its mesh.  At the first call every step is
+    captured (``Mesh.capture``, one warm-up a device) and replayed; at a
+    later one step k replays ``steps[k]``, whose static inputs take the
+    run's arguments.  Each shard's graphs share one memory pool
+    (``pools``, by shard index): a shard's steps replay in the order of
+    their capture, one after another (``Mesh.run``'s fences), and the
+    first device's later graphs (the provers' graph B) may share shard
+    0's.  A call that runs another function at a step, runs another set of
+    shards, or makes another number of runs than the first raises
+    RuntimeError; a first call that raised is captured anew next time."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.steps = []  # (fn's code, GraphedShards)
+        self.pools = {}
+        self.complete = False
+        self._next = 0
+
+    @property
+    def graphs(self) -> list:
+        """Every shard graph of the program, step by step."""
+        return [g for _, shards in self.steps for g in shards.graphs if g is not None]
+
+    def __enter__(self):
+        if not self.complete:
+            self.steps, self.pools = [], {}
+        self._next = 0
+        self.mesh.program = self
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.mesh.program = None
+        if exc_type is None:
+            if self._next != len(self.steps):
+                raise RuntimeError(f"a graphed sharded call made {self._next} runs; its "
+                                   f"graphs hold {len(self.steps)}")
+            self.complete = True
+        return False
+
+    def step(self, fn, sharded, where):
+        code = getattr(fn, "__code__", fn)
+        mask = self.mesh._active(where)
+        if not self.complete:
+            self.steps.append((code, self.mesh.capture(fn, *sharded, where=where,
+                                                       pools=self.pools)))
+        elif self._next >= len(self.steps):
+            raise RuntimeError(f"a graphed sharded call made more runs than the "
+                               f"{len(self.steps)} its graphs hold")
+        want, shards = self.steps[self._next]
+        if want is not code or mask != [g is not None for g in shards.graphs]:
+            raise RuntimeError(f"step {self._next} of a graphed sharded call runs another "
+                               "function or other shards than its graph")
+        self._next += 1
+        return shards.run(*sharded)
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -6,7 +6,11 @@ Each JAX sharded function runs once, jitted on the 8-device CPU mesh that
 stages, the stwo fold at lde 8 over 3 stages, and the stwo commit with its
 levels at lde 7.  The port's counterparts run over 2, 4 and 8 CPU shards
 and must equal them word for word, as must the port's single-device
-oracles.  ``prove_sharded`` over 2 and 4 shards must give the committed
+oracles.  With ``graphed=True`` (one graphed sharded call, each shard
+body replayed from its graph; on the CPU the captured bodies run without
+a graph) they must equal them too, at the capture and at a replay, and a
+second set of alphas through the same graphs must give JAX's fold of
+them.  ``prove_sharded`` over 2 and 4 shards must give the committed
 fixtures of the JAX prover word for word; no JAX prover runs here.
 """
 
@@ -14,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from stark_symphony_tpu.ops import field101 as JF101
 from stark_symphony_tpu.parallel import fri_shard as JFS
@@ -85,6 +90,18 @@ def stwo_fold_case():
 
 
 @pytest.fixture(scope="module")
+def second_alphas(stwo_fold_case):
+    """Other alphas for stwo_fold_case's values, and JAX's sharded fold
+    of them (a JAX run of its own: the alphas are constants of its
+    program)."""
+    values, _, lde_log, stages, _ = stwo_fold_case
+    alphas = [_qm31((), 20 + s) for s in range(stages)]
+    got = JFS.stwo_fold_sharded(jnp.asarray(values), [jnp.asarray(a) for a in alphas],
+                                lde_log, _jax_mesh(), stages)
+    return alphas, np.asarray(got)
+
+
+@pytest.fixture(scope="module")
 def stwo_commit_case():
     lde_log = 7
     values = _qm31((1 << lde_log,), 4)
@@ -145,6 +162,110 @@ def test_stwo_commit_sharded_equals_jax(stwo_commit_case, n_shards):
         np.testing.assert_array_equal(_words(got), want)
         np.testing.assert_array_equal(_words(one), want)
     np.testing.assert_array_equal(_words(single_root), want_root)
+
+
+def _graphed(kind, case, mesh):
+    """The port's graphed call of `kind` on `case` (its module fixture's
+    inputs) over `mesh`, and JAX's outputs, as lists of words."""
+    if kind == "stark101":
+        values, x_invs, betas, stages, jv, jx = case
+        v, x = FS.stark101_fold_sharded(from_numpy(values), from_numpy(x_invs), betas, mesh,
+                                        stages, graphed=True)
+        return [unshard(mesh, v, "sp"), unshard(mesh, x, "sp")], [jv, jx]
+    if kind == "stwo_fold":
+        values, alphas, lde_log, stages, want = case
+        got = FS.stwo_fold_sharded(from_numpy(values), [from_numpy(a) for a in alphas],
+                                   lde_log, mesh, stages, graphed=True)
+        return [unshard(mesh, got, "sp")], [want]
+    values, lde_log, want_root, want_tree = case
+    root, levels = FS.stwo_commit_sharded(from_numpy(values), mesh, return_levels=True,
+                                          graphed=True)
+    return [root] + FS.natural_levels_to_tree(levels, lde_log), [want_root] + want_tree
+
+
+@pytest.mark.parametrize("n_shards", SHARDS)
+@pytest.mark.parametrize("kind", ["stwo_fold", "stark101", "stwo_commit"])
+def test_graphed_equals_jax(kind, n_shards, request):
+    """The graphed fold and commit equal JAX's outputs word for word at the
+    call that captures and at the one that replays, which captures
+    nothing new."""
+    case = request.getfixturevalue(f"{kind}_case")
+    mesh = _sp(n_shards)
+    for _ in range(2):
+        got, want = _graphed(kind, case, mesh)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_words(g), w)
+        assert mesh.graphs.captures == 1
+    program = next(iter(mesh.graphs.entries.values()))
+    assert program.complete and program.graphs
+
+
+def test_graphed_fold_takes_new_randomness(stwo_fold_case, second_alphas, stark101_case):
+    """The alphas and betas are static inputs of the stage graphs, not part
+    of them: a second set through the same graphs gives its own fold
+    (JAX's for the stwo alphas, the oracle's for stark101's betas, which
+    are ints), and nothing is captured again."""
+    values, alphas, lde_log, stages, want = stwo_fold_case
+    alphas2, want2 = second_alphas
+    mesh = _sp(4)
+    for a, w in ((alphas, want), (alphas2, want2)):
+        got = FS.stwo_fold_sharded(from_numpy(values), [from_numpy(x) for x in a], lde_log,
+                                   mesh, stages, graphed=True)
+        np.testing.assert_array_equal(_words(unshard(mesh, got, "sp")), w)
+    assert not np.array_equal(want, want2)
+    v101, x_invs, betas, n101, jv, _ = stark101_case
+    betas2 = betas[::-1]
+    for b in (betas, betas2):
+        v, _ = FS.stark101_fold_sharded(from_numpy(v101), from_numpy(x_invs), b, mesh, n101,
+                                        graphed=True)
+        ref, _ = FS.stark101_fold_reference(from_numpy(v101), from_numpy(x_invs), b, n101)
+        np.testing.assert_array_equal(_words(unshard(mesh, v, "sp")), _words(ref))
+    # one capture each for stwo's and stark101's folds; betas2's fold is not betas'
+    assert mesh.graphs.captures == 2 and jv.tolist() != _words(ref).tolist()
+
+
+def _plus_one(x):
+    return x + 1
+
+
+def _double(x):
+    return x * 2
+
+
+def test_graphed_call_repeats_its_runs():
+    """A graphed sharded call (``Mesh.graphed``) replays its k-th captured
+    step at its k-th run, on new inputs of the same specs; a later call
+    that runs another function or other shards at a step, or another
+    number of runs, raises and leaves no call in progress; a first call
+    that raised is captured anew by the next."""
+    mesh = _sp(2)
+    xs = [torch.arange(4), torch.arange(4, 8)]
+
+    def call(*fns, where=None, inputs=xs):
+        with mesh.graphed("k", (inputs,)):
+            out = inputs
+            for f in fns:
+                out = mesh.run(f, out, where=where)
+            return out
+
+    with pytest.raises(ZeroDivisionError):
+        with mesh.graphed("k", (xs,)):
+            mesh.run(_plus_one, xs)
+            1 / 0
+    assert mesh.program is None and not next(iter(mesh.graphs.entries.values())).complete
+    assert [t.tolist() for t in call(_plus_one, _double)] == [[2, 4, 6, 8], [10, 12, 14, 16]]
+    ys = [torch.arange(10, 14), torch.arange(4)]
+    assert [t.tolist() for t in call(_plus_one, _double, inputs=ys)] == [
+        [22, 24, 26, 28], [2, 4, 6, 8]]
+    program = next(iter(mesh.graphs.entries.values()))
+    assert mesh.graphs.captures == 1 and len(program.steps) == 2 and len(program.graphs) == 4
+    for fns, where in (((_double, _plus_one), None), ((_plus_one,), None),
+                       ((_plus_one, _double, _double), None), ((_plus_one, _double), [1, 0])):
+        with pytest.raises(RuntimeError, match="graphed sharded call"):
+            call(*fns, where=where)
+        assert mesh.program is None
+    assert mesh.graphs.captures == 1
 
 
 @pytest.mark.parametrize("cfg,n_shards,n_layers", [

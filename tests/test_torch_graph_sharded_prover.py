@@ -11,7 +11,16 @@ shards, where a capture runs the same segments without a graph.
 * Segments A and B make no tensor from host data and read nothing to the
   host on their second call: the CPU stand-in for "a CUDA graph can
   capture them".
-* A mesh over two devices raises ValueError: graph A is one capture.
+* The per-shard layout, which a mesh over several devices takes
+  (``per_shard_prover``: graph A's work as one graphed sharded call, a
+  graph on the first device for ``_pre_fri``, each transcript step and
+  the small layers with the first PoW chunk, a graph a shard for every
+  leaf hash, level and fold; graph B on the first device), built here on
+  CPU meshes of 2, 4 and 8 shards: the fixture word for word, then
+  another seed's through the same graphs, nothing captured again; its
+  second call makes no tensor from host data and reads nothing to the
+  host; through the kernel wrappers it launches what the eager prover
+  does; a mesh over two devices selects it before anything runs.
 
 TESTING sizes; no JAX prover runs (the fixtures are its output).
 """
@@ -29,6 +38,7 @@ from stark_symphony_tpu_torch.ops import sha256 as TS
 from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
 from stark_symphony_tpu_torch.ops.u32 import from_numpy, to_numpy
 from stark_symphony_tpu_torch.parallel.mesh import Mesh
+from stark_symphony_tpu_torch.tools import build as TB
 from stark_symphony_tpu_torch.tools.build import tree_leaves
 from stark_symphony_tpu_torch.utils.proofcache import fixture_path
 from test_torch_build import _host_copies
@@ -145,10 +155,79 @@ def test_segment_makes_no_host_tensor_or_read(segment, segment_a_4, monkeypatch)
         assert (to_numpy(x) == to_numpy(y)).all()
 
 
-def test_mesh_over_two_devices_raises():
-    """Graph A is one capture on one device: a mesh over two devices
-    raises ValueError before any segment runs, and says why."""
-    mesh = Mesh(["cpu", "meta"], ("sp",))
-    with pytest.raises(ValueError, match="does not join"):
-        PS.prove_sharded(TESTING, mesh, graphed=True)
-    assert mesh.graphs.captures == 0
+def test_mesh_over_two_devices_selects_the_per_shard_layout(monkeypatch):
+    """A mesh over two devices takes the per-shard layout, decided from
+    its devices before anything runs (nothing can run on ``meta``); a mesh
+    of one device takes graph A."""
+    built = []
+    monkeypatch.setattr(PS, "per_shard_prover", lambda *args: built.append(args) or "per-shard")
+    two, one = Mesh(["cpu", "meta"], ("sp",)), _sp(2)
+    assert PS.per_shard_layout(two) and not PS.per_shard_layout(one)
+    trace = from_numpy(TPROVER.generate_trace(TESTING))
+    assert PS.graphed_prover(TESTING, two, "sp", trace) == "per-shard"
+    assert built == [(TESTING, two, "sp", trace, "wide_fibonacci")] and two.graphs.captures == 0
+
+
+@pytest.mark.parametrize("n_shards,n_layers", [(2, 3), (4, 2), (8, 1)])
+def test_per_shard_layout_equals_fixture(n_shards, n_layers):
+    """The per-shard layout over 2, 4 and 8 shards: s0's fixture at the
+    call that captures and s2's through the same graphs; the one entry it
+    adds to ``mesh.graphs`` holds graph A as a program whose steps are the
+    first device's pieces, every sharded layer's leaf hash, levels, top
+    levels and fold, and each transcript step."""
+    mesh = _sp(n_shards)
+    for seed in (0, 2):
+        trace = from_numpy(TPROVER.seeded_trace(TESTING, seed))
+        proof = TPROVER._to_numpy_proof(PS.per_shard_prover(TESTING, mesh, "sp", trace)(trace))
+        assert_proofs_equal(proof, _fixture(TESTING, seed))
+        assert mesh.graphs.captures == 1
+    gp = PS.per_shard_prover(TESTING, mesh, "sp", trace)
+    assert gp.b is not None and gp.continued == 0 and gp.a.program.complete
+    # _pre_fri, then a layer's leaves, log2(n / D) levels, top levels, its
+    # transcript step and fold, then the small layers' graph
+    n_dist = [TESTING.lde_log_size - l - (n_shards.bit_length() - 1) for l in range(n_layers)]
+    assert len(gp.a.program.steps) == 1 + sum(4 + k for k in n_dist) + 1
+
+
+def test_per_shard_layout_makes_no_host_tensor_or_read(monkeypatch):
+    """Graph A of the per-shard layout over 4 shards, at its second call
+    (every shard body and first-device piece replayed, the exchanges and
+    the copy into B's inputs between them), makes no tensor from host data
+    and reads nothing to the host; B's second call neither."""
+    mesh = _sp(4)
+    trace = from_numpy(TPROVER.generate_trace(TESTING))
+    gp = PS.per_shard_prover(TESTING, mesh, "sp", trace)
+    gp(trace)
+    nonce = gp.a.out.grind[1:].clone()
+    copies, reads = _host_copies(monkeypatch), _host_reads(monkeypatch)
+    with _ScalarReads() as scalar:
+        a = gp.a.replay(trace)
+        proof = gp.b.replay(nonce)
+    assert copies == [] and reads == [] and scalar.reads == []
+    monkeypatch.undo()
+    assert_proofs_equal(TPROVER._to_numpy_proof(proof), _fixture(TESTING))
+    assert a is gp.a.out
+
+
+def test_per_shard_layout_through_the_kernel_wrappers(monkeypatch):
+    """Over 4 shards with every SHA-256 and tree level dispatched as on the
+    card, to the K1/K2 wrappers around an emulated launch: the per-shard
+    layout launches what the eager prover does, at the call that captures
+    and at the one that replays, and gives the fixture."""
+    monkeypatch.setattr(TS, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(TM, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(ck, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(ck, "_launch", _emulated_launch)
+    mesh = _sp(4)
+    trace = from_numpy(TPROVER.generate_trace(TESTING))
+    counts = []
+    for run in (lambda: PS.prove_sharded(TESTING, mesh)[0],
+                lambda: TPROVER._to_numpy_proof(PS.per_shard_prover(TESTING, mesh, "sp",
+                                                                     trace)(trace)),
+                lambda: TPROVER._to_numpy_proof(PS.per_shard_prover(TESTING, mesh, "sp",
+                                                                     trace)(trace))):
+        ck.reset_launches()
+        assert_proofs_equal(run(), _fixture(TESTING))
+        counts.append(dict(ck.launches))
+    assert counts[0] == counts[1] == counts[2] and counts[0]["sha256_pair"] > 0
+    assert TB.launch_counts()["merkle_walk"] == 0
