@@ -1,0 +1,10 @@
+"""Device ms of the stark101 verifier's FRI decommitment, the leaf digests,
+the padded walk and the last check, inside the stream's graph as it
+replays: the device span `dev.stark101.fri_merkle`, median over the
+batches of the program-span stretch (``program_spans``)."""
+
+from portbench import program_spans as S
+
+
+def read(ctx):
+    return S.median_ms(ctx, "dev.stark101.fri_merkle")

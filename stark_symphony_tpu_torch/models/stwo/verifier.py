@@ -16,6 +16,12 @@ order, as the JAX package's ``verify``.
 As in the JAX package, the terminal FRI check compares the folded value
 with the last-layer constant, plus ``folded_query == 0`` only when the
 config folds all the way down.
+
+``verify`` runs in four device spans (``utils/trace.device_span``),
+named as ``tools/profile_verify.STAGES``: ``dev.stwo.stages_i_iv``,
+``dev.stwo.stage_v`` (the trace and CP walk), ``dev.stwo.stage_vi``
+(``query_points`` and ``fri_answers``) and ``dev.stwo.stage_vii`` (the
+folds, the FRI walk and the last checks); together they cover its body.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ...ops.circle import (
 )
 from ...ops.sha256 import sha256_pair, sha256_words
 from ...ops.u32 import M32, bit_reverse, byte_swap32, const, from_i32, lt64, to_i32
+from ...utils.trace import device_span
 from . import channel as ch
 from .config import StwoConfig
 from .constraints import REGISTRY
@@ -330,84 +337,89 @@ def verify(proof, cfg: StwoConfig, air="wide_fibonacci",
     else:
         eval_cp = REGISTRY[air]
 
-    masks = {}
-    queries, cp_alpha, oods_point, deep_alpha, fri_alphas = _stages_i_to_iv(
-        proof, cfg, eval_cp, masks
-    )
-    if query_slice is not None:
-        shard, n_local = query_slice
-        queries = queries[..., shard * n_local:(shard + 1) * n_local]
-    n_q = queries.shape[-1]  # cfg.n_queries, or the shard's n_local
-
-    # Stage V: trace and CP decommitments, one batched walk
-    trace_leaf = sha256_words(proof.trace_evals)  # (..., Q, 8)
-    cp_leaf = sha256_words(proof.cp_evals)
-    leaves = torch.cat([trace_leaf, cp_leaf], dim=-2)
-    sibs = torch.cat([proof.trace_sibs, proof.cp_sibs], dim=-3)
-    roots = torch.cat(
-        [
-            proof.commitments[..., None, 1, :].expand(trace_leaf.shape),
-            proof.commitments[..., None, 2, :].expand(cp_leaf.shape),
-        ],
-        dim=-2,
-    )
-    both = merkle.verify_path(
-        leaves, torch.cat([queries, queries], dim=-1), sibs, roots
-    )
-    masks["trace_merkle"] = both[..., :n_q].all(dim=-1)
-    masks["cp_merkle"] = both[..., n_q:].all(dim=-1)
-
-    # Stage VI: DEEP quotients
-    pts = query_points(cfg, queries)
-    answers = fri_answers(
-        cfg, queries, proof.trace_evals, proof.cp_evals, deep_alpha,
-        oods_point, proof.oods_trace, proof.oods_cp, pts=pts,
-    )
-    fri_start = answers
-    if linkage == "unfold":
-        fri_start = unfold_first_layer(proof, cfg, queries, fri_alphas)
-
-    # Stage VII: FRI folds; all layers' node paths in one padded walk
-    cur_q, cur_e = queries, fri_start
-    coord_invs = batch_inv_m31(fri_fold_coords(cfg, queries, pts))
-    roots = [proof.fri_first_commit] + [
-        proof.fri_inner_commits[..., i, :] for i in range(cfg.n_inner_layers)
-    ]
-    max_depth = cfg.fri_layer_depth(0)
-    m_nodes, m_idx, m_sibs, m_roots, m_depths = [], [], [], [], []
-    for l, root in enumerate(roots):
-        node_idx = (cur_q & 0xFFFFFFFE) >> 1  # before the layer halves q
-        cur_q, cur_e, node = _fri_layer(
-            cur_q, cur_e, proof.fri_witnesses[l], coord_invs[l], fri_alphas[l],
+    dev = proof.commitments.device
+    with device_span("dev.stwo.stages_i_iv", dev):
+        masks = {}
+        queries, cp_alpha, oods_point, deep_alpha, fri_alphas = _stages_i_to_iv(
+            proof, cfg, eval_cp, masks
         )
-        depth = cfg.fri_layer_depth(l)
-        sib = proof.fri_sibs[l]
-        if depth < max_depth:
-            zeros = sib.new_zeros(sib.shape[:-2] + (max_depth - depth, 8))
-            sib = torch.cat([sib, zeros], dim=-2)
-        m_nodes.append(node)
-        m_idx.append(node_idx)
-        m_sibs.append(sib)
-        m_roots.append(root[..., None, :].expand(node.shape))
-        m_depths.extend([depth] * n_q)
-    ok_paths = merkle.verify_path_padded(
-        torch.cat(m_nodes, dim=-2),
-        torch.cat(m_idx, dim=-1),
-        torch.cat(m_sibs, dim=-3),
-        torch.cat(m_roots, dim=-2),
-        const(tuple(m_depths), queries.device, torch.int32),
-    )
-    for l in range(len(roots)):
-        masks[f"fri_merkle_{l}"] = ok_paths[..., l * n_q: (l + 1) * n_q].all(dim=-1)
+        if query_slice is not None:
+            shard, n_local = query_slice
+            queries = queries[..., shard * n_local:(shard + 1) * n_local]
+        n_q = queries.shape[-1]  # cfg.n_queries, or the shard's n_local
 
-    last = proof.fri_last[..., None, :].expand(cur_e.shape)
-    masks["fri_last_eval"] = F.qm31_eq(cur_e, last).all(dim=-1)
-    if cfg.final_log_size == 0:
-        masks["fri_last_query"] = (cur_q == 0).all(dim=-1)
+    with device_span("dev.stwo.stage_v", dev):
+        # Stage V: trace and CP decommitments, one batched walk
+        trace_leaf = sha256_words(proof.trace_evals)  # (..., Q, 8)
+        cp_leaf = sha256_words(proof.cp_evals)
+        leaves = torch.cat([trace_leaf, cp_leaf], dim=-2)
+        sibs = torch.cat([proof.trace_sibs, proof.cp_sibs], dim=-3)
+        roots = torch.cat(
+            [
+                proof.commitments[..., None, 1, :].expand(trace_leaf.shape),
+                proof.commitments[..., None, 2, :].expand(cp_leaf.shape),
+            ],
+            dim=-2,
+        )
+        both = merkle.verify_path(
+            leaves, torch.cat([queries, queries], dim=-1), sibs, roots
+        )
+        masks["trace_merkle"] = both[..., :n_q].all(dim=-1)
+        masks["cp_merkle"] = both[..., n_q:].all(dim=-1)
 
-    ok_all = None
-    for m in masks.values():
-        ok_all = m if ok_all is None else (ok_all & m)
+    with device_span("dev.stwo.stage_vi", dev):
+        # Stage VI: DEEP quotients
+        pts = query_points(cfg, queries)
+        answers = fri_answers(
+            cfg, queries, proof.trace_evals, proof.cp_evals, deep_alpha,
+            oods_point, proof.oods_trace, proof.oods_cp, pts=pts,
+        )
+        fri_start = answers
+        if linkage == "unfold":
+            fri_start = unfold_first_layer(proof, cfg, queries, fri_alphas)
+
+    with device_span("dev.stwo.stage_vii", dev):
+        # Stage VII: FRI folds; all layers' node paths in one padded walk
+        cur_q, cur_e = queries, fri_start
+        coord_invs = batch_inv_m31(fri_fold_coords(cfg, queries, pts))
+        roots = [proof.fri_first_commit] + [
+            proof.fri_inner_commits[..., i, :] for i in range(cfg.n_inner_layers)
+        ]
+        max_depth = cfg.fri_layer_depth(0)
+        m_nodes, m_idx, m_sibs, m_roots, m_depths = [], [], [], [], []
+        for l, root in enumerate(roots):
+            node_idx = (cur_q & 0xFFFFFFFE) >> 1  # before the layer halves q
+            cur_q, cur_e, node = _fri_layer(
+                cur_q, cur_e, proof.fri_witnesses[l], coord_invs[l], fri_alphas[l],
+            )
+            depth = cfg.fri_layer_depth(l)
+            sib = proof.fri_sibs[l]
+            if depth < max_depth:
+                zeros = sib.new_zeros(sib.shape[:-2] + (max_depth - depth, 8))
+                sib = torch.cat([sib, zeros], dim=-2)
+            m_nodes.append(node)
+            m_idx.append(node_idx)
+            m_sibs.append(sib)
+            m_roots.append(root[..., None, :].expand(node.shape))
+            m_depths.extend([depth] * n_q)
+        ok_paths = merkle.verify_path_padded(
+            torch.cat(m_nodes, dim=-2),
+            torch.cat(m_idx, dim=-1),
+            torch.cat(m_sibs, dim=-3),
+            torch.cat(m_roots, dim=-2),
+            const(tuple(m_depths), queries.device, torch.int32),
+        )
+        for l in range(len(roots)):
+            masks[f"fri_merkle_{l}"] = ok_paths[..., l * n_q: (l + 1) * n_q].all(dim=-1)
+
+        last = proof.fri_last[..., None, :].expand(cur_e.shape)
+        masks["fri_last_eval"] = F.qm31_eq(cur_e, last).all(dim=-1)
+        if cfg.final_log_size == 0:
+            masks["fri_last_query"] = (cur_q == 0).all(dim=-1)
+
+        ok_all = None
+        for m in masks.values():
+            ok_all = m if ok_all is None else (ok_all & m)
     return ok_all, masks
 
 

@@ -18,6 +18,17 @@ package takes a one-proof verifier and ``vmap``.
   inputs (``GraphedVerifier``), so the graphs' memory does not grow with
   `depth`.  On the CPU the same steps run without streams, pinned memory or
   a graph.
+
+Its spans (``utils/trace.record_spans``; a global test each when none is
+recorded): ``stream.feed`` around each feed, with ``batch=<feed number>``
+(every span of the feed inherits it), and inside it ``stream.slot_wait``
+(the slot's last copy), ``stream.stage`` (``host_i32`` and the copy into
+pinned memory) and ``stream.enqueue`` (the copy, the widen and the graph
+call), then ``stream.drain`` for each batch drained, with its own
+``batch``.  Device spans: ``dev.stream.h2d`` on the copy stream,
+``dev.stream.widen`` and the graph's ``dev.graph.replay`` on the compute
+stream; a batch's device spans are read at its drain, once its bitmap is
+done.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import torch
 
 from ..ops.u32 import from_i32, host_i32
 from ..tools.build import capture, tree_leaves, tree_map
+from ..utils import trace
 
 
 def scan_microbatches(verify_batch_fn, batch, micro: int) -> torch.Tensor:
@@ -71,57 +83,75 @@ class StreamVerifier:
         self._cuda = self.device.type == "cuda"
         self._slots = [None] * depth
         self._next = 0
+        self._fed = 0
         self._graph = None
-        self._inflight = []  # (bitmap, event recorded after it)
+        self._inflight = []  # (batch number, bitmap, event recorded after it, span mark)
         self._done = []
         if self._cuda:
             self._copy = torch.cuda.Stream(self.device)
             self._compute = torch.cuda.Stream(self.device)
 
-    def _slot(self, host):
-        """Slot k's (pinned host words, device words, copied, consumed),
-        made at its first use on the shapes of `host`."""
+    def _slot(self):
+        """The next slot: (pinned host words, device words, copied,
+        consumed), or None before its first use (``_make_slot``)."""
         k = self._next
         self._next = (k + 1) % self._depth
-        if self._slots[k] is None:
-            pinned = tree_map(lambda a: torch.empty(a.shape, dtype=torch.int32,
-                                                    pin_memory=True), host)
-            dev = tree_map(lambda a: torch.empty(a.shape, dtype=torch.int32,
-                                                 device=self.device), host)
-            self._slots[k] = (pinned, dev, torch.cuda.Event(), torch.cuda.Event())
+        return k, self._slots[k]
+
+    def _make_slot(self, k, host):
+        """Slot k, made on the shapes of `host`."""
+        pinned = tree_map(lambda a: torch.empty(a.shape, dtype=torch.int32,
+                                                pin_memory=True), host)
+        dev = tree_map(lambda a: torch.empty(a.shape, dtype=torch.int32,
+                                             device=self.device), host)
+        self._slots[k] = (pinned, dev, torch.cuda.Event(), torch.cuda.Event())
         return self._slots[k]
 
     def _verify(self, words):
-        batch = self._layout(words)
+        with trace.device_span("dev.stream.widen", self.device):
+            batch = self._layout(words)
         if self._graph is None:
             self._graph = capture(self._fn, (batch,))
         return self._graph(batch)
 
     def feed(self, batch) -> None:
-        host = tree_map(host_i32, batch)
-        if not self._cuda:
-            self._done.append(self._verify(tree_map(torch.from_numpy, host)))
-            return
-        pinned, dev, copied, consumed = self._slot(host)
-        copied.synchronize()  # the slot's last copy has read its pinned words
-        tree_map(lambda p, a: np.copyto(p.numpy(), a), pinned, host)
-        with torch.cuda.stream(self._copy):
-            self._copy.wait_event(consumed)  # the slot's last batch is laid out
-            tree_map(lambda d, p: d.copy_(p, non_blocking=True), dev, pinned)
-            copied.record(self._copy)
-        with torch.cuda.stream(self._compute):
-            self._compute.wait_event(copied)
-            bitmap = self._verify(dev)
-            consumed.record(self._compute)
-            done = torch.cuda.Event()
-            done.record(self._compute)
-        self._inflight.append((bitmap, done))
-        while len(self._inflight) > self._depth:
-            self._drain_one()
+        seq, self._fed = self._fed, self._fed + 1
+        with trace.span("stream.feed", batch=seq):
+            if not self._cuda:
+                with trace.span("stream.stage"):
+                    host = tree_map(torch.from_numpy, tree_map(host_i32, batch))
+                with trace.span("stream.enqueue"):
+                    self._done.append(self._verify(host))
+                return
+            k, slot = self._slot()
+            if slot is not None:
+                with trace.span("stream.slot_wait"):
+                    slot[2].synchronize()  # the slot's last copy has read its pinned words
+            with trace.span("stream.stage"):
+                host = tree_map(host_i32, batch)
+                pinned, dev, copied, consumed = slot or self._make_slot(k, host)
+                tree_map(lambda p, a: np.copyto(p.numpy(), a), pinned, host)
+            with trace.span("stream.enqueue"):
+                with torch.cuda.stream(self._copy):
+                    self._copy.wait_event(consumed)  # the slot's last batch is laid out
+                    with trace.device_span("dev.stream.h2d", self.device):
+                        tree_map(lambda d, p: d.copy_(p, non_blocking=True), dev, pinned)
+                    copied.record(self._copy)
+                with torch.cuda.stream(self._compute):
+                    self._compute.wait_event(copied)
+                    bitmap = self._verify(dev)
+                    consumed.record(self._compute)
+                    done = torch.cuda.Event()
+                    done.record(self._compute)
+            self._inflight.append((seq, bitmap, done, trace.mark()))
+            while len(self._inflight) > self._depth:
+                self._drain_one()
 
     def _drain_one(self) -> None:
-        bitmap, done = self._inflight.pop(0)
-        done.synchronize()
+        seq, bitmap, done, mark = self._inflight.pop(0)
+        with trace.span("stream.drain", batch=seq):
+            done.synchronize()
+            trace.resolve(mark)
         self._done.append(bitmap)
 
     def finish(self) -> list:

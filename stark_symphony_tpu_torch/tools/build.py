@@ -18,7 +18,12 @@ same 20,000-110,000 kernels, K1-K5 among them, from one host call.
   always runs before it.  With CUDA tensors a failed capture or
   replay raises: there is no eager fallback.  With CPU tensors (a caller
   has to ask for them) the same copy-in, call and copy-out runs without a
-  graph.
+  graph.  Its spans (``utils/trace.record_spans``): host spans
+  ``graph.copy_in`` and ``graph.replay`` in ``replay``, ``graph.copy_out``
+  in ``__call__``, and the device span ``dev.graph.replay`` around the
+  replay itself; a graph captured under the recorder also replays the
+  device spans its function met (the verifiers' stages), and waits for
+  its last replay before the next.
 * ``GraphCache``: graphs by key and input specs, so a second call with
   the same key and the same shapes replays without capturing again (the
   counterpart of jit's cache); it counts the captures it made.
@@ -57,6 +62,7 @@ from ..ops.cuda import build as kbuild
 from ..ops.cuda import fri_kernel as fk
 from ..ops.cuda import sha256_kernel as ck
 from ..ops.u32 import WORD
+from ..utils import trace
 
 _MAGIC = b"STPUGRF1"
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -171,8 +177,10 @@ class GraphedVerifier:
     launches) and ``instantiate_s`` (ending the capture, which
     instantiates the graph); ``pool_bytes``, the device memory the capture
     took (``max_memory_allocated`` around it); ``pool``, the graph's
-    memory pool.  On the CPU there is no graph, the counts are 0, the
-    times 0.0 and the pool None."""
+    memory pool; ``spans``, the device spans met in the capture
+    (``trace.GraphSpans``: none unless a span recorder was on).  On the
+    CPU there is no graph, the counts are 0, the times 0.0, the pool and
+    ``spans`` None."""
 
     def __init__(self, fn, args: tuple, warmup: int = 2, stream=None, pool=None):
         self.fn = fn
@@ -182,7 +190,7 @@ class GraphedVerifier:
             raise ValueError("capture: the arguments hold no tensor")
         self.device = tensors[0].device
         self._spec = specs(self.static)
-        self.graph = self.pool = self.out = None
+        self.graph = self.pool = self.out = self.spans = None
         self.launches = {name: 0 for name in launch_counts()}
         self.capture_s = self.instantiate_s = 0.0
         self.pool_bytes = 0
@@ -202,7 +210,8 @@ class GraphedVerifier:
         mem0 = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream), \
+                trace.capture_spans() as spans:
             t0 = time.perf_counter()
             out = self.fn(*self.static)
             t1 = time.perf_counter()
@@ -213,6 +222,7 @@ class GraphedVerifier:
         self.out = out
         self.pool = graph.pool()
         self.graph = graph
+        self.spans = spans
 
     def replay(self, *args):
         """Copy `args` into the static inputs and replay (on the CPU: call
@@ -220,16 +230,23 @@ class GraphedVerifier:
         spec = specs(tuple(args))
         if spec != self._spec:
             raise ValueError(f"graphed verifier captured for {self._spec}, called with {spec}")
-        tree_map(lambda s, a: s.copy_(a) if isinstance(s, torch.Tensor) else None,
-                 self.static, tuple(args))
-        if self.graph is None:
-            self.out = self.fn(*self.static)
-        else:
-            self.graph.replay()
+        if self.spans is not None:
+            self.spans.settle()
+        with trace.span("graph.copy_in"):
+            tree_map(lambda s, a: s.copy_(a) if isinstance(s, torch.Tensor) else None,
+                     self.static, tuple(args))
+        with trace.span("graph.replay"), trace.device_span("dev.graph.replay", self.device):
+            if self.graph is None:
+                self.out = self.fn(*self.static)
+            else:
+                self.graph.replay()
+                self.spans.replayed(torch.cuda.current_stream(self.device))
         return self.out
 
     def __call__(self, *args):
-        return tree_map(_clone, self.replay(*args))
+        out = self.replay(*args)
+        with trace.span("graph.copy_out"):
+            return tree_map(_clone, out)
 
 
 def capture(fn, args: tuple, warmup: int = 2, stream=None, pool=None) -> GraphedVerifier:
