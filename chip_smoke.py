@@ -17,7 +17,7 @@ verification (K1-K3 in every shard), the domain-sharded FRI fold and
 commit, the sharded prover through ``prove_stwo_sharded()`` (K1, K2) and
 two processes counting one batch; then the tools: the debug CLI's
 verifies (K1-K3), the linkage audit's transcript (K1) and the per-stage
-profiler over both paths (K1-K5); then what the JAX package compiles, as
+profiler over both paths (K1-K6); then what the JAX package compiles, as
 CUDA graphs: the three provers (``graphed=True``; K1, K2; the sharded
 one's shards inside its graph), routed verify and DP, TP, GSPMD and
 routed-sharded with a graph a shard (K1-K3).  Each
@@ -26,7 +26,7 @@ after.  In phases:
 
   (a) device: needs CUDA (exits non-zero without it) and prints the card's
       name and power limit as nvidia-smi reports them;
-  (b) build: compiles the kernels K1-K5 from ``stark_symphony_tpu_torch/csrc``
+  (b) build: compiles the kernels K1-K6 from ``stark_symphony_tpu_torch/csrc``
       (one nvcc process per source, all at once) and prints ptxas's
       registers, shared memory and spills for each;
   (c) kernels: each kernel against its plain PyTorch version on the card, bit
@@ -51,11 +51,18 @@ after.  In phases:
       of the CPU run; the time of ``tile_batch`` (H2D and the on-device
       relayout) is printed;
   (e) launch counts, per path, each counted from 0 over one run: standard K1,
-      K2, K3 > 0 and no K4/K5; tiled K1 > 0, K4 = 2, K5 = 1 and no K2/K3;
+      K2, K3 > 0, K6 = 1 and no K4/K5; tiled K1 > 0, K4 = 2, K5 = 1, K6 = 1
+      and no K2/K3 (K6 once in every stwo verify, graphed ones included);
   (f) at the shapes each path gives each kernel: kernel and plain version
       compared bit for bit again (K4/K5 on inputs where both ok values
       occur, as in (c)), then timed with CUDA events, beside each
-      path's proofs/s (median of 3 batches, each timed alone); for every
+      path's proofs/s (median of 3 batches, each timed alone); K6, stage
+      VI's DEEP quotients (``verifier.fri_answers`` on the card), against
+      ``fri_answers_plain`` on the card word for word: the 4,096-proof
+      batch with the 15 tamper classes, the same with non-canonical words
+      (x + P, 2^31 + k, 2^32 - 1, 0) in its evals, OODS values and alpha,
+      a TP slice (Q = 4) and batches of 1 and 257 proofs, one launch a
+      call, then timed beside its plain version and bound; for every
       kernel, torch.profiler over one wrapper call must show one device
       activity, the stpu:: kernel itself, and K3 is timed in blocks of 32
       and of 128 threads;
@@ -132,7 +139,7 @@ after.  In phases:
       (61 / 9 / 2); the linkage audit of proof.json (rank 11 against 12,
       inconsistent) and of the own PRODUCTION proof (consistent);
       ``tools/profile_verify`` over both paths at B = 4,096, every stage
-      graphed equal to eager, ``full`` accepting all, each stage's K1-K5
+      graphed equal to eager, ``full`` accepting all, each stage's K1-K6
       launches as PROFILE_LAUNCHES, the per-stage lines printed;
       ``STPU_CHECK=1``: a TESTING verify accepts, ``m31_add`` on a lane
       holding P raises FloatingPointError, a capture of the verify raises
@@ -292,6 +299,9 @@ KERNELS = {  # wrapper name -> (kernel, source, Pallas function it replaces,
                  "leafwalk_kernel"),
     "fri_all_layers": ("K5", "csrc/fri.cu", "stark_symphony_tpu/ops/pallas/fri_kernel.py:314",
                        "fri_kernel"),
+    "deep_quotients": ("K6", "csrc/deep.cu",
+                       "none (stark_symphony_tpu/models/stwo/verifier.py fri_answers, "
+                       "XLA's fusion)", "deep_quotients_kernel"),
 }
 # Each path's launch counts expected on one batch (stark101_prove: one
 # proof); a count of None means "more than 0".  A verifier path's profile
@@ -343,6 +353,14 @@ PATHS = {
     "profile_tiled": {"sha256_words": 41, "sha256_pair": 0, "merkle_walk": 0,
                       "leafwalk": 1 + 1 + 2, "fri_all_layers": 1 + 1},
 }
+# K6 runs once in every stwo verify, on the card's stage VI: once a batch
+# of the standard, tiled and routed paths and of debug's verify, once a
+# shard of dp, tp and routed_sharded, once in each of the per-stage
+# profiler's stage VI and full (both paths).
+_DEEP = {"standard": 1, "tiled": 1, "routed": 1, "dp": 8, "tp": 8, "routed_sharded": 8,
+         "debug": 1, "profile_standard": 2, "profile_tiled": 2}
+for _path, _row in PATHS.items():
+    _row["deep_quotients"] = _DEEP.get(_path, 0)
 # (l): JAX's compiled programs as CUDA graphs launch what their eager runs
 # do: the stwo prover's graphs A and B together (the first PoW chunk in A),
 # stark101's body, routed verify, one graph a shard of dp, tp and
@@ -357,7 +375,7 @@ PATHS.update({f"{path}_graphed": dict(PATHS[path]) for path in (
 # sharded prover's per-shard layout the eager sharded proof's launches,
 # over its program's graphs and graph B
 PATHS["sp_commit_graphed"] = {"sha256_words": 8, "sha256_pair": 15 * 4 + 3, "merkle_walk": 0,
-                              "leafwalk": 0, "fri_all_layers": 0}
+                              "leafwalk": 0, "fri_all_layers": 0, "deep_quotients": 0}
 PATHS["stwo_prover_per_shard_graphed"] = dict(PATHS["stwo_prover_sharded"])
 # (k): each profiled stage's launches over one eager call (tools/profile_verify);
 # PATHS' profile_* rows are their sums.  debug (proof.json, PRODUCTION):
@@ -366,13 +384,16 @@ PROFILE_LAUNCHES = {
     "profile_standard": {
         "stages_i_iv": {"sha256_words": 41},
         "stage_v": {"sha256_words": 2, "merkle_walk": 1},
-        "stage_vi": {}, "stage_vi_points_only": {},
+        "stage_vi": {"deep_quotients": 1}, "stage_vi_points_only": {},
         "stage_vii": {"sha256_words": 18, "sha256_pair": 9, "merkle_walk": 1},
-        "full": {"sha256_words": 61, "sha256_pair": 9, "merkle_walk": 2}},
+        "full": {"sha256_words": 61, "sha256_pair": 9, "merkle_walk": 2,
+                 "deep_quotients": 1}},
     "profile_tiled": {
         "stage_v_trace": {"leafwalk": 1}, "stage_v_cp": {"leafwalk": 1},
-        "fri_fused": {"fri_all_layers": 1}, "points_only": {}, "stage_vi": {},
-        "full": {"sha256_words": 41, "leafwalk": 2, "fri_all_layers": 1}},
+        "fri_fused": {"fri_all_layers": 1}, "points_only": {},
+        "stage_vi": {"deep_quotients": 1},
+        "full": {"sha256_words": 41, "leafwalk": 2, "fri_all_layers": 1,
+                 "deep_quotients": 1}},
 }
 PROFILE_ITERS = 1
 
@@ -392,6 +413,22 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_DATA_COMPRESS = 1024
 OPS_CONST_COMPRESS = 640
 OPS_NODE = OPS_DATA_COMPRESS + OPS_CONST_COMPRESS
+# K6 (stage VI) does M31 arithmetic, no SHA-256: an M31 multiply
+# (csrc/m31.cuh m31_mul) takes on that pipe at least two LOP3 (lo & P,
+# x & P) and two shifts (the funnel of hi:lo, x >> 31); its 32 x 32 -> 64
+# multiply, the additions and the compares are left out, and so are all
+# additions outside the multiplies.
+OPS_M31_MUL = 4
+
+
+def deep_multiplies(lanes: int, proofs: int, samples: int) -> int:
+    """M31 multiplies stage VI needs at the least: a lane the denominator
+    (two CM31 products, 8, and its inverse: two squares, the 37 of m31_inv
+    and 2), a QM31-by-M31 product twice a sample (8) and the closing
+    QM31-by-CM31 and QM31 products (8 + 16); a proof, a sample's
+    interpolant (two QM31 products for c, three for the alpha scaling) and
+    the next power of alpha, six QM31 products of 16."""
+    return lanes * (8 + 41 + 8 * samples + 24) + proofs * samples * 6 * 16
 
 
 def _ops_sha_words(n: int) -> int:
@@ -424,6 +461,10 @@ def bound(name: str, args, outs):
         else:  # per-path depths broadcast over the leading batch axes
             levels = int(np.sum(depths)) * (lanes // np.size(depths))
         ops, compr = levels * OPS_NODE, levels * 2
+    elif name == "deep_quotients":
+        lanes, proofs = args[0].numel() // 2, args[3].numel() // 4
+        ops = OPS_M31_MUL * deep_multiplies(lanes, proofs, args[1].shape[-1] + args[2].shape[-1])
+        compr = 0
     elif name == "leafwalk":
         evals, _, sibs, _ = args
         lanes, n, depth = evals.shape[1], evals.shape[0], sibs.shape[0]
@@ -578,18 +619,19 @@ def cuda_call(fn):
 
 
 def reset_counts() -> None:
+    from stark_symphony_tpu_torch.ops.cuda import deep_kernel as dk
     from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
     from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
 
     ck.reset_launches()
     fk.reset_launches()
+    dk.reset_launches()
 
 
 def launch_counts() -> dict:
-    from stark_symphony_tpu_torch.ops.cuda import fri_kernel as fk
-    from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
+    from stark_symphony_tpu_torch.tools.build import launch_counts as counts
 
-    return {**ck.launches, **fk.launches}
+    return counts()
 
 
 def check_counts(path: str, counts: dict) -> None:
@@ -1228,6 +1270,93 @@ def time_cases(cases, err):
     return rows, calls
 
 
+def deep_operands(batch, cfg):
+    """Stage VI's operands of a numpy proof batch on the card, as ``verify``
+    computes them: [queries, trace_evals, cp_evals, random_coeff,
+    oods_point, oods_trace, oods_cp, pts], ``fri_answers``' order."""
+    from stark_symphony_tpu_torch.models.stwo import proof as P
+    from stark_symphony_tpu_torch.models.stwo import verifier
+    from stark_symphony_tpu_torch.models.stwo.constraints import REGISTRY
+
+    t = P.to_torch(batch, "cuda")
+    queries, _, oods_point, deep_alpha, _ = verifier._stages_i_to_iv(
+        t, cfg, REGISTRY["wide_fibonacci"], {})
+    return [queries, t.trace_evals, t.cp_evals, deep_alpha, oods_point, t.oods_trace,
+            t.oods_cp, verifier.query_points(cfg, queries)]
+
+
+def _non_canonical(rng, x):
+    """A copy of word tensor x with one word in 8 replaced by a word that is
+    not canonical: an x + P alias, 2^31 + k, 2^32 - 1, or 0."""
+    import numpy as np
+    import torch
+
+    flat = x.cpu().numpy().reshape(-1).copy()
+    k = max(1, flat.size // 8)
+    at = rng.integers(0, flat.size, k)
+    kind = rng.integers(0, 4, k)
+    flat[at] = np.select(
+        [kind == 0, kind == 1, kind == 2],
+        [flat[at] % 0x7FFFFFFF + 0x7FFFFFFF, 0x80000000 + rng.integers(0, 1 << 16, k),
+         np.full(k, 0xFFFFFFFF)], 0)
+    return torch.from_numpy(flat.reshape(x.shape)).to(x.device)
+
+
+def phase_deep(rng, proofs, err):
+    """(f), K6: stage VI's DEEP quotients (``verifier.fri_answers`` on the
+    card) against ``fri_answers_plain`` on the card, word for word: the
+    4,096-proof PRODUCTION batch with the 15 tamper classes; the same with
+    non-canonical words in trace_evals, cp_evals, oods_trace, oods_cp and
+    random_coeff; a TP slice (Q = 4); ragged batches of 1 and 257 proofs.
+    One launch a call.  Then K6 timed at 4,096 proofs beside the plain
+    version's comparison run and its bound, and one call profiled.
+    Returns its row as ``time_cases`` gives them."""
+    import torch
+
+    from stark_symphony_tpu_torch import entry as E
+    from stark_symphony_tpu_torch.models.stwo import verifier
+    from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION
+    from stark_symphony_tpu_torch.ops.cuda import deep_kernel as dk
+
+    ops = deep_operands(tamper_lanes(E.production_batch(N_PROOFS, proofs), PROD_TAMPERS),
+                        PRODUCTION)
+    noisy = list(ops)
+    for i in (1, 2, 3, 5, 6):  # the evals, random_coeff and the OODS values
+        noisy[i] = _non_canonical(rng, ops[i])
+    n_changed = sum(int((noisy[i] != ops[i]).sum()) for i in (1, 2, 3, 5, 6))
+    per_query = (0, 1, 2, 7)  # queries, trace_evals, cp_evals, pts
+    cases = [("tamper classes", ops), ("non-canonical words", noisy),
+             ("TP slice Q=4", [x[:, 4:8].contiguous() if i in per_query else x
+                               for i, x in enumerate(noisy)]),
+             ("1 proof", [x[:1] for x in noisy]), ("257 proofs", [x[:257] for x in noisy])]
+    p_ms = None
+    for what, args in cases:
+        before = dk.launches["deep_quotients"]
+        got = verifier.fri_answers(PRODUCTION, *args[:7], pts=args[7])
+        check(dk.launches["deep_quotients"] == before + 1,
+              f"deep_quotients ({what}): {dk.launches['deep_quotients'] - before} launches")
+        want, ms = cuda_call(
+            lambda a=args: verifier.fri_answers_plain(PRODUCTION, *a[:7], pts=a[7]))
+        p_ms = ms if p_ms is None else p_ms
+        diff = int((got - want).abs().max().item())
+        err["deep_quotients"] = max(err["deep_quotients"], diff)
+        check(torch.equal(got, want), f"deep_quotients != plain ({what}), max |diff| {diff}")
+    log(f"K6 deep_quotients: bit-equal to fri_answers_plain on the card: "
+        f"{', '.join(w for w, _ in cases)} ({n_changed} words changed)")
+
+    kargs = [x.contiguous() for x in [ops[7]] + ops[1:7]]  # the wrapper's order
+    out = dk.deep_quotients(*kargs)
+    b_ms, b_by, _ = bound("deep_quotients", kargs, (out,))
+    k_ms = cuda_ms(lambda: dk.deep_quotients(*kargs), 20)
+    (dev_ms,) = one_kernel_each([("deep_quotients", lambda: dk.deep_quotients(*kargs))])
+    mults = deep_multiplies(kargs[0].numel() // 2, N_PROOFS, 20)
+    what = f"{N_PROOFS} proofs x 16 queries, 20 samples"
+    log(f"time deep_quotients [{what}]: kernel {k_ms:.4f} ms ({dev_ms:.4f} ms on the "
+        f"device), plain {p_ms:.3f} ms ({p_ms / k_ms:.1f}x); bound {b_ms:.6f} ms by "
+        f"{b_by}; {mults} M31 multiplies [{CARD}]")
+    return ["deep_quotients", what, k_ms, p_ms, b_ms, b_by, mults, dev_ms]
+
+
 # torch.profiler on the card drops device activities at the start of a
 # session, more of them the longer the process has run: ten kernels each
 # followed by a synchronize were all recorded in a fresh process and none
@@ -1315,7 +1444,8 @@ def one_kernel_each(calls) -> list:
 def _launch_shape(name, args):
     """(blocks, dynamic shared-memory bytes) of one launch of kernel `name`
     made with the launcher arguments `args`, as its launcher in csrc/
-    computes them: what the profiler's trace shows of each launch."""
+    computes them: what the profiler's trace shows of each launch; None
+    where the launcher derives it from the shapes alone (K6)."""
     if name == "sha256_words":
         _, _, n, lanes, threads = args
         return -(-lanes // threads), threads * max(n, 8) * 8 + 8
@@ -1325,6 +1455,8 @@ def _launch_shape(name, args):
     if name == "merkle_walk":
         lanes, threads = args[7], args[8]
         return -(-lanes // threads), threads * 200 + 32
+    if name == "deep_quotients":  # its launcher picks both from the shapes: matched by order
+        return None, None
     return -(-args[-1] // 256), 0  # K4, K5: blocks of 256, lanes last
 
 
@@ -1365,6 +1497,9 @@ def _locate_missed(path, prof, record, short) -> None:
                 for e in dev if f"stpu::{fn_name}(" in e["name"]]
         if seen and seen[0][1] is None:  # no shared memory in the trace
             made = [(blocks, None) for blocks, _ in made]
+        # a part of a launch's shape that the record leaves open (None) matches any
+        seen = [tuple(None if m is None else v for m, v in zip(made[0], shape))
+                for shape in seen]
         for i in _missed(made, seen):
             where = "the first of the batch" if i == 0 else "inside the batch"
             log(f"profile {path}: {fn_name}: launch {i + 1} of {len(made)} "
@@ -2882,7 +3017,7 @@ def phase_tools(proofs) -> dict:
     inconsistent; of the own PRODUCTION proof: consistent.  The profiler
     (``tools/profile_verify``) over both paths at B = 4,096: every graphed
     stage equal to its eager run (it raises otherwise), ``full`` accepting
-    every proof, each stage's K1-K5 launches as PROFILE_LAUNCHES, the
+    every proof, each stage's K1-K6 launches as PROFILE_LAUNCHES, the
     run's total as its stages give it; the lines printed.  STPU_CHECK on:
     a TESTING verify accepts, ``m31_add`` on a lane holding P raises
     FloatingPointError, and a capture of the verify raises EagerOnlyError
@@ -3074,6 +3209,7 @@ def main() -> int:
     counts["standard"], std_ms, fn, batch, tamper_cpu = phase_slice(proofs)  # (d), (e)
     counts["tiled"], tiled_ms, fn_t, tb = phase_tiled(proofs, tamper_cpu)  # (d'), (e)
     rows = phase_timings(rng, errs)  # (f)
+    rows.append(phase_deep(rng, proofs, errs))
     phase_profile("standard", fn, batch, std_ms)
     phase_profile("tiled", fn_t, tb, tiled_ms)
     stamp("(f)")

@@ -1,9 +1,16 @@
-// M31 / QM31 device arithmetic for the FRI kernel in fri.cu.
+// M31 / QM31 device arithmetic for the FRI kernel in fri.cu and the DEEP
+// quotient kernel in deep.cu.
 //
 // Counterpart of the field helpers of stark_symphony_tpu/ops/pallas/fri_kernel.py:
 //   _m31_red / _m31_add / _m31_neg / _m31_sub / _m31_mul -> m31_red ... m31_mul
 //   _cm31_mul                                            -> cm31_mul
 //   _qm31_add / _qm31_sub / _qm31_mul / _qm31_mul_m31    -> qm31_add ... qm31_mul_m31
+// and, at the end of the file, of the helpers of ops/field.py that the Pallas
+// kernel has no counterpart of (m31_sqr, m31_inv, cm31_inv, qm31_mul_cm31).
+// The helpers above are the same formulas as ops/field.py's of the same
+// name, step for step: its qm31_mul forms (2 + i) * ai * bi through cm31_mul
+// with the constant (2, 1), and since cm31_mul's outputs are canonical that
+// gives the words of the add chain below on any operand.
 //
 // Every function is bit-identical to the JAX formulas on ANY 32-bit word,
 // not only on canonical values below P: tampered proofs carry words >= P.
@@ -92,6 +99,43 @@ __device__ __forceinline__ void qm31_mul(const uint32_t a[4], const uint32_t b[4
   out[1] = m31_add(ri, ti);
   out[2] = m31_add(ir, jr);
   out[3] = m31_add(ii, ji);
+}
+
+// ops/field.py m31_sqr.
+__device__ __forceinline__ uint32_t m31_sqr(uint32_t a) { return m31_mul(a, a); }
+
+// x^(2^k): k squarings, as ops/field.py m31_pow takes a power of two.
+__device__ __forceinline__ uint32_t m31_sqr_n(uint32_t x, int k) {
+#pragma unroll 1
+  for (int s = 0; s < k; ++s) x = m31_sqr(x);
+  return x;
+}
+
+// ops/field.py m31_inv: a^(p - 2) by its 37-multiplication addition chain,
+// product for product; inv(0) = 0.
+__device__ __forceinline__ uint32_t m31_inv(uint32_t a) {
+  const uint32_t t0 = m31_mul(m31_sqr_n(a, 2), a);    // a^5
+  const uint32_t t1 = m31_mul(m31_sqr(t0), t0);       // a^15
+  const uint32_t t2 = m31_mul(m31_sqr_n(t1, 3), t0);  // a^125
+  const uint32_t t3 = m31_mul(m31_sqr(t2), t0);       // a^255
+  const uint32_t t4 = m31_mul(m31_sqr_n(t3, 8), t3);  // a^65535
+  const uint32_t t5 = m31_mul(m31_sqr_n(t4, 8), t3);  // a^16777215
+  return m31_mul(m31_sqr_n(t5, 7), t2);               // a^2147483645
+}
+
+// ops/field.py cm31_inv: conj(a) * inv(ar^2 + ai^2).
+__device__ __forceinline__ void cm31_inv(uint32_t ar, uint32_t ai, uint32_t& re,
+                                         uint32_t& im) {
+  const uint32_t ninv = m31_inv(m31_add(m31_sqr(ar), m31_sqr(ai)));
+  re = m31_mul(ar, ninv);
+  im = m31_mul(m31_neg(ai), ninv);
+}
+
+// ops/field.py qm31_mul_cm31: both CM31 coordinates of a times (cr + ci i).
+__device__ __forceinline__ void qm31_mul_cm31(const uint32_t a[4], uint32_t cr,
+                                              uint32_t ci, uint32_t out[4]) {
+  cm31_mul(a[0], a[1], cr, ci, out[0], out[1]);
+  cm31_mul(a[2], a[3], cr, ci, out[2], out[3]);
 }
 
 }  // namespace stpu

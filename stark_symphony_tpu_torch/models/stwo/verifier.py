@@ -9,9 +9,10 @@ stages V and VII run fused (``ops/fri.py``).
 Every function is polymorphic over an optional leading proof-batch axis,
 so ``verify`` on stacked (B, ...) tensors checks the whole batch at once:
 SHA-256 and Merkle calls see B*Q lanes, and on a CUDA device they run in
-the kernels of ``ops/cuda``.  Failures are boolean masks, never aborts;
-``verify`` returns the same masks, under the same keys and in the same
-order, as the JAX package's ``verify``.
+the kernels of ``ops/cuda``, as do stage VI's DEEP quotients (K6).
+Failures are boolean masks, never aborts; ``verify`` returns the same
+masks, under the same keys and in the same order, as the JAX package's
+``verify``.
 
 As in the JAX package, the terminal FRI check compares the folded value
 with the last-layer constant, plus ``folded_query == 0`` only when the
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ...ops import checks as _checks
 from ...ops import field as F
 from ...ops import fri, merkle
 from ...ops.circle import (
@@ -37,7 +39,8 @@ from ...ops.circle import (
     qm31_point_y,
     query_point_table_on,
 )
-from ...ops.sha256 import sha256_pair, sha256_words
+from ...ops.cuda import deep_kernel
+from ...ops.sha256 import on_cuda, sha256_pair, sha256_words
 from ...ops.u32 import M32, bit_reverse, byte_swap32, const, from_i32, lt64, to_i32
 from ...utils.trace import device_span
 from . import channel as ch
@@ -156,9 +159,10 @@ def batch_inv_m31(xs):
             for x, inv in zip(xs, invs)]
 
 
-def fri_answers(cfg: StwoConfig, queries, trace_evals, cp_evals, random_coeff,
-                oods_point, oods_trace, oods_cp, pts=None):
-    """DEEP quotient aggregation per query.
+def fri_answers_plain(cfg: StwoConfig, queries, trace_evals, cp_evals, random_coeff,
+                      oods_point, oods_trace, oods_cp, pts=None):
+    """DEEP quotient aggregation per query, in plain PyTorch (the CPU path,
+    and what kernel K6 is held to).
 
     queries (..., Q); trace_evals (..., Q, C); cp_evals (..., Q, 16).
     Returns (..., Q, 4) QM31 quotients."""
@@ -186,6 +190,35 @@ def fri_answers(cfg: StwoConfig, queries, trace_evals, cp_evals, random_coeff,
     return F.qm31_mul(
         F.qm31_mul_cm31(acc, denom_inv), _per_query(alpha_i, nq)
     )
+
+
+# K6's operands, in its wrapper's order
+_DEEP_OPERANDS = ("pts", "trace_evals", "cp_evals", "random_coeff", "oods_point",
+                  "oods_trace", "oods_cp")
+
+
+def fri_answers(cfg: StwoConfig, queries, trace_evals, cp_evals, random_coeff,
+                oods_point, oods_trace, oods_cp, pts=None):
+    """DEEP quotient aggregation per query: on a CUDA tensor one launch of
+    kernel K6 (``ops/cuda/deep_kernel``), its operands made contiguous
+    first where they are views (the tiled path's unlaned eval columns); on
+    a CPU tensor ``fri_answers_plain``; another device raises.  With
+    ``STPU_CHECK=1`` K6's operands are tested canonical before the launch,
+    as the plain field code tests each of its own.
+
+    queries (..., Q); trace_evals (..., Q, C); cp_evals (..., Q, 16).
+    Returns (..., Q, 4) QM31 quotients."""
+    if pts is None:
+        pts = query_points(cfg, queries)
+    if not on_cuda(pts, "fri_answers"):
+        return fri_answers_plain(cfg, queries, trace_evals, cp_evals, random_coeff,
+                                 oods_point, oods_trace, oods_cp, pts=pts)
+    args = [x.contiguous() for x in (pts, trace_evals, cp_evals, random_coeff, oods_point,
+                                      oods_trace, oods_cp)]
+    if _checks.ON:
+        for name, x in zip(_DEEP_OPERANDS, args):
+            _checks.check_lt(x, F.P, f"fri_answers {name}")
+    return deep_kernel.deep_quotients(*args)
 
 
 def _fold(eval0, eval1, coord_inv, alpha):

@@ -38,9 +38,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes of the extern "C" launchers in csrc/sha256.cu and
-# csrc/fri.cu; the last two arguments of each are the device ordinal and the
-# CUDA stream.
+# name -> argtypes of the extern "C" launchers in csrc/sha256.cu,
+# csrc/fri.cu and csrc/deep.cu; the last two arguments of each are the
+# device ordinal and the CUDA stream.
 _SIGNATURES = {
     "stpu_sha256_words": (_P, _P, _I, _I, _I, _I, _P),
     "stpu_sha256_pair": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "stpu_leafwalk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "stpu_fri_all_layers": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P),
+    "stpu_deep_quotients": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -59,6 +59,7 @@ from ..models.stwo import proof as P
 from ..models.stwo import tiled, verifier
 from ..models.stwo.config import PRODUCTION, TESTING
 from ..ops.cuda import build as kbuild
+from ..ops.cuda import deep_kernel as dk
 from ..ops.cuda import fri_kernel as fk
 from ..ops.cuda import sha256_kernel as ck
 from ..ops.u32 import WORD
@@ -152,8 +153,8 @@ def _spec(x):
 
 
 def launch_counts() -> dict:
-    """The kernel wrappers' launch counts (``ops/cuda/{sha256,fri}_kernel``)."""
-    return {**ck.launches, **fk.launches}
+    """The kernel wrappers' launch counts (``ops/cuda/{sha256,fri,deep}_kernel``)."""
+    return {**ck.launches, **fk.launches, **dk.launches}
 
 
 def specs(tree):

@@ -5,7 +5,8 @@ records every Fiat-Shamir channel operation (mix/draw) with its value
 while a verifier runs, for bit-exactness triage against the native oracle
 (``native/symphony verify-stwo -v`` prints the same digests);
 ``record_ops`` records every field, hash, Merkle and circle primitive call
-with decoded arguments and result.
+with decoded arguments and result, and stwo's stage VI (``fri_answers``)
+as one op.
 
 The port runs eagerly, so values are concrete as they are recorded (the
 JAX package turns jit off for the same end).  Recording copies each value
@@ -132,13 +133,18 @@ _OP_SITES = [
      ("f_add", "f_sub", "f_mul", "f_inv", "f_pow", "mod_u64")),
     # direct-import call sites of the hash ops
     ("stark_symphony_tpu_torch.models.stwo.channel", ("sha256_words",)),
-    ("stark_symphony_tpu_torch.models.stwo.verifier", ("sha256_words", "sha256_pair")),
+    ("stark_symphony_tpu_torch.models.stwo.verifier",
+     ("sha256_words", "sha256_pair", "fri_answers")),
     ("stark_symphony_tpu_torch.models.stwo.prover", ("sha256_words",)),
     ("stark_symphony_tpu_torch.models.stark101.channel", ("sha256_words",)),
     ("stark_symphony_tpu_torch.models.stark101.verifier", ("sha256_words",)),
     ("stark_symphony_tpu_torch.models.stark101.prover", ("sha256_words",)),
     ("stark_symphony_tpu_torch.parallel.fri_shard", ("sha256_words", "sha256_pair")),
 ]
+# Ops recorded whole: one event, and none for the primitives they call.  On
+# the card stage VI is one kernel (K6), so its plain version's field ops on
+# the CPU are hidden too, and the two devices record the same events.
+_WHOLE_OPS = {"fri_answers"}
 
 
 def _summarize(x):
@@ -178,10 +184,18 @@ def record_ops(ops=None):
     saved = []
     only = set(ops) if ops is not None else None
 
+    inside = [0]  # calls of _WHOLE_OPS open
+
     def _wrap(name, fn):
+        whole = name in _WHOLE_OPS
+
         def wrapper(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            if only is None or name in only:
+            inside[0] += whole
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                inside[0] -= whole
+            if not inside[0] and (only is None or name in only):
                 events.append((name, [_summarize(a) for a in args], _summarize(out)))
             return out
 

@@ -16,6 +16,9 @@ minutes to compile on CPU), and every mask of the port must equal JAX's,
 bit for bit, in the same key order.
 """
 
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,9 +27,10 @@ from stark_symphony_tpu.models.stwo import proof as JP
 from stark_symphony_tpu.models.stwo import verifier as JV
 from stark_symphony_tpu_torch.models.stwo import proof as TP
 from stark_symphony_tpu_torch.models.stwo import verifier as TV
-from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING
+from stark_symphony_tpu_torch.models.stwo.config import PRODUCTION, TESTING, TESTING_Q4
 from stark_symphony_tpu_torch.ops import merkle as TM
 from stark_symphony_tpu_torch.ops import sha256 as TS
+from stark_symphony_tpu_torch.ops.cuda import deep_kernel as dk
 from stark_symphony_tpu_torch.ops.cuda import sha256_kernel as ck
 from stark_symphony_tpu_torch.parallel.batch import make_mesh, verify_batch_dp
 from stark_symphony_tpu_torch.parallel.pipeline import StreamVerifier, scan_microbatches
@@ -197,6 +201,153 @@ def test_production_fixture_accepted_on_cpu():
                           PRODUCTION)
     assert bool(ok), [k for k, v in masks.items() if not bool(v)]
     assert "fri_merkle_8" in masks and len(masks) == 26
+
+
+# -- stage VI: the DEEP quotients ------------------------------------------
+
+P = 0x7FFFFFFF
+
+
+def _stage_vi_words(seed, cfg, lead, non_canonical):
+    """Seeded stage-VI operands as numpy uint32 words, fri_answers' order
+    (queries, trace_evals, cp_evals, random_coeff, oods_point, oods_trace,
+    oods_cp); with `non_canonical`, one word in four of every operand but
+    the queries is an x + P alias, 2^31 + k, 2^32 - 1 or 0."""
+    rng = np.random.default_rng(seed)
+    q, c, k = cfg.n_queries, cfg.n_columns, cfg.n_cp_partitions
+    shapes = [lead + (q, c), lead + (q, k), lead + (4,), lead + (2, 4), lead + (c, 4),
+              lead + (k, 4)]
+    out = [rng.integers(0, 1 << cfg.lde_log_size, lead + (q,), dtype=np.uint32)]
+    for shape in shapes:
+        x = rng.integers(0, P, shape, dtype=np.uint32)
+        if non_canonical:
+            flat = x.reshape(-1)
+            at = rng.integers(0, flat.size, max(1, flat.size // 4))
+            kind = rng.integers(0, 4, at.size)
+            flat[at] = np.select(
+                [kind == 0, kind == 1, kind == 2],
+                [flat[at] + np.uint32(P), (1 << 31) + rng.integers(0, 99, at.size),
+                 np.full(at.size, 0xFFFFFFFF)], 0).astype(np.uint32)
+        out.append(x)
+    return out
+
+
+STAGE_VI_CASES = {  # name -> (config, batch axes, non-canonical words)
+    "testing_canonical": (TESTING, (16,), False),
+    "testing_non_canonical": (TESTING, (16,), True),
+    "q4_non_canonical": (TESTING_Q4, (3,), True),
+    "q4_unbatched_non_canonical": (TESTING_Q4, (), True),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGE_VI_CASES))
+def test_fri_answers_plain_equals_jax(case):
+    """Stage VI on the CPU: ``fri_answers`` (which takes
+    ``fri_answers_plain`` for a CPU tensor) and ``fri_answers_plain`` give
+    JAX's ``fri_answers`` words, non-canonical operands included."""
+    cfg, lead, non_canonical = STAGE_VI_CASES[case]
+    words = _stage_vi_words(len(case), cfg, lead, non_canonical)
+    want = np.asarray(JV.fri_answers(cfg, *[jnp.asarray(w) for w in words]))
+    ts = [torch.from_numpy(w.astype(np.int64)) for w in words]
+    plain = TV.fri_answers_plain(cfg, *ts)
+    np.testing.assert_array_equal(plain.numpy(), want.astype(np.int64))
+    assert torch.equal(TV.fri_answers(cfg, *ts), plain)
+
+
+def test_fri_answers_unsupported_device_raises():
+    """Stage VI on a device that is neither CUDA nor the CPU raises."""
+    words = _stage_vi_words(1, TESTING, (2,), False)
+    ts = [torch.from_numpy(w.astype(np.int64)) for w in words]
+    pts = TV.query_points(TESTING, ts[0]).to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TV.fri_answers(TESTING, *[t.to("meta") for t in ts], pts=pts)
+
+
+@pytest.mark.parametrize("mode", ["record_ops", "checking"])
+def test_fri_answers_launches_k6_while_recording_or_checking(mode, monkeypatch):
+    """With the op recorder open, or STPU_CHECK on, stage VI on the card
+    still launches K6 (its launch emulated here): the recorder holds it as
+    one ``fri_answers`` op, the same events as the CPU run records, and the
+    checks test K6's operands first, raising before the launch on a word
+    that is not canonical."""
+    from stark_symphony_tpu_torch.ops import checks
+    from stark_symphony_tpu_torch.utils import trace
+
+    words = _stage_vi_words(3, TESTING, (2,), False)
+    ts = [torch.from_numpy(w.astype(np.int64)) for w in words]
+    want = TV.fri_answers_plain(TESTING, *ts)
+    with trace.record_ops() as on_cpu:
+        TV.fri_answers(TESTING, *ts)
+    monkeypatch.setattr(TV, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(dk, "_check_device", lambda *a, **k: None)
+    monkeypatch.setattr(dk.build, "launch", _emulated_deep)
+    before = dk.launches["deep_quotients"]
+    block = trace.record_ops() if mode == "record_ops" else checks.checking()
+    with block as events:
+        got = TV.fri_answers(TESTING, *ts)
+    assert dk.launches["deep_quotients"] == before + 1
+    assert torch.equal(got, want)
+    if mode == "record_ops":
+        assert [e[0] for e in on_cpu] == ["fri_answers"] and events == on_cpu
+        return
+    ts[2][1, 0, 5] = P  # a cp_evals word of 2^31 - 1
+    with checks.checking(), pytest.raises(FloatingPointError, match="fri_answers cp_evals"):
+        TV.fri_answers(TESTING, *ts)
+    assert dk.launches["deep_quotients"] == before + 1
+
+
+def _emulated_deep(name, device, pts, trace, cp, rc, point, oods_trace, oods_cp, out,
+                   n_cols, n_parts, n_q, lanes, *rest):
+    """What K6 computes, on its flattened operands, with the plain version."""
+    b = lanes // n_q
+    cfg = dataclasses.replace(TESTING, n_columns=n_cols, n_cp_partitions=n_parts)
+    res = TV.fri_answers_plain(
+        cfg, torch.zeros((b, n_q), dtype=torch.int64), trace.view(b, n_q, n_cols),
+        cp.view(b, n_q, n_parts), rc.view(b, 4), point.view(b, 2, 4),
+        oods_trace.view(b, n_cols, 4), oods_cp.view(b, n_parts, 4), pts=pts.view(b, n_q, 2))
+    out.copy_(res.view(out.shape))
+
+
+def test_verify_through_the_deep_kernel_wrapper(results, monkeypatch):
+    """The standard verify with stage VI dispatched as on the card, to the
+    K6 wrapper around an emulated launch: one launch, and on the own
+    TESTING tamper batch every mask and the accept bitmap equal JAX's."""
+    monkeypatch.setattr(TV, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(dk, "_check_device", lambda *a, **k: None)
+    monkeypatch.setattr(dk.build, "launch", _emulated_deep)
+    before = dk.launches["deep_quotients"]
+    batch = tamper_batch(cached_stwo_proof(TESTING), 1 + TESTING.n_inner_layers)
+    ok, masks = TV.verify(TP.to_torch(batch), TESTING)
+    assert dk.launches["deep_quotients"] == before + 1
+    jok, jmasks = results["own_reference"]["jax"]
+    assert list(masks) == list(jmasks)
+    for k in jmasks:
+        np.testing.assert_array_equal(masks[k].numpy(), jmasks[k], err_msg=k)
+    np.testing.assert_array_equal(ok.numpy(), jok)
+
+
+def test_deep_kernel_wrapper_checks(monkeypatch):
+    """K6's wrapper refuses CPU tensors, int32 words, a wrong shape and a
+    view that is not contiguous; on well-formed operands (the device check
+    and the launch stood in for) it returns the plain words in the
+    operands' batch shape."""
+    words = _stage_vi_words(2, TESTING_Q4, (2, 3), True)
+    ts = [torch.from_numpy(w.astype(np.int64)) for w in words]
+    args = [TV.query_points(TESTING_Q4, ts[0])] + ts[1:]
+    with pytest.raises(ValueError, match="CUDA"):
+        dk.deep_quotients(*args)
+    monkeypatch.setattr(dk, "_check_device", lambda *a, **k: None)
+    monkeypatch.setattr(dk.build, "launch", _emulated_deep)
+    with pytest.raises(TypeError, match="int64"):
+        dk.deep_quotients(*args[:3], args[3].to(torch.int32), *args[4:])
+    with pytest.raises(ValueError, match="shape"):
+        dk.deep_quotients(*args[:5], args[5][..., :3, :].contiguous(), args[6])
+    with pytest.raises(ValueError, match="contiguous"):
+        dk.deep_quotients(args[0], args[1].transpose(0, 1).contiguous().transpose(0, 1),
+                          *args[2:])
+    got = dk.deep_quotients(*args)
+    want = TV.fri_answers_plain(TESTING_Q4, ts[0], *ts[1:])
+    assert got.shape == (2, 3, 4, 4) and torch.equal(got, want)
 
 
 @pytest.mark.slow
